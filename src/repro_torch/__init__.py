@@ -27,8 +27,9 @@ Public API — the names of ``repro`` that this port has so far:
     Resilience   inject_faults / FaultSpec, typed failures,
                  PressureMonitor
 
-Not ported yet (they raise ``NotImplementedError``): the device codec
-(``codec_backend="device"``), batched runs (``Simulator.run_batch``,
+Both codec backends run: ``codec_backend="host"`` and the device-resident
+codec ``codec_backend="device"``.  Not ported yet (they raise
+``NotImplementedError``): batched runs (``Simulator.run_batch``,
 ``run(trajectories=K)``), several devices or a mesh, and the per-gate path
 (``gate_schedule=False``).  ``SimService`` and the noise-channel helpers
 are not exported yet.

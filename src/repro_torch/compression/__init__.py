@@ -6,9 +6,10 @@ Layering:
 * ``lossless``     — the host-only lossless stage (zlib + bitmap pre-scan).
 * ``segments``     — the structured compressed-block container + wire layout.
 * ``codec``        — host composition of the two stages (block <-> bytes).
+* ``device_codec`` — the device-resident lossy half (the CUDA codec kernels
+                     next to the compute; only compressed wire crosses the
+                     boundary).
 * ``store``        — the two-level (RAM/disk) block store.
-
-The device-resident lossy half (``device_codec``) is not ported yet.
 """
 from .pwrel import PwRelParams, quantize_plane, dequantize_plane  # noqa: F401
 from .codec import (  # noqa: F401

@@ -10,8 +10,10 @@ Execution model per stage (from the §4.1 partition):
 Phase orchestration lives in :mod:`repro_torch.core.pipeline`: host phases
 of *different* groups overlap through worker threads while the device work
 of a wave is queued on the CUDA stream (§4.2's transfer-concealed
-workflow).  The codec runs on the host (``codec_backend="host"``): raw
-group arrays cross the host↔device boundary.
+workflow).  The codec runs on the host (``codec_backend="host"``: raw
+group arrays cross the host↔device boundary) or next to the compute
+(``codec_backend="device"``: the CUDA codec kernels quantize and
+dequantize on the card, and only the compressed wire crosses).
 
 On the device the group is *planes-resident*: it lives as a (2, 2^(b+m))
 f32 re/im plane stack from decode through every fused gate to encode, and
@@ -83,9 +85,11 @@ class EngineConfig:
             reduced when the staging working set would break the budget).
         codec_backend: ``"host"`` runs the whole codec on the host and
             moves raw 2^(b+m) complex64 group arrays across the
-            host↔device boundary; ``"device"`` (the device-resident
-            codec) is not ported yet and raises ``NotImplementedError``
-            with compression on.
+            host↔device boundary; ``"device"`` runs the lossy half on the
+            device (the fused encode/decode kernels of ``csrc/codec.cu``,
+            their plain versions on the CPU) so only the compressed wire
+            (~4.25 bytes/amplitude) crosses.  Without compression
+            ``"device"`` falls back to ``"host"`` with a warning.
         ram_budget_bytes: primary-tier budget of the two-level store (§4.4);
             overflow spills to disk.
         spill_dir: secondary-tier directory (default: a temp dir).

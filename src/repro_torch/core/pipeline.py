@@ -9,12 +9,22 @@ three phases:
     3. encode/store  — compress the updated blocks back into the store
 
 :class:`StagePipeline` owns the phase orchestration; a
-:class:`CodecBackend` decides *where the codec runs*.  This port has the
-host backend (:class:`HostCodecBackend`): blocks are fully decompressed on
-the host and the **raw** 2^(b+m) complex64 group array crosses the
-host↔device boundary (8 bytes/amplitude each way).  The device-resident
-codec (``codec_backend="device"``) comes with the codec kernels and raises
-until then.
+:class:`CodecBackend` decides *where the codec runs*:
+
+``host``   (:class:`HostCodecBackend`)   — the correctness baseline: blocks
+    are fully decompressed on the host and the **raw** 2^(b+m) complex64
+    group array crosses the host↔device boundary (8 bytes/amplitude each
+    way).
+
+``device`` (:class:`DeviceCodecBackend`) — the paper's design: only the
+    **compressed wire representation** (u16 codes + ballot sign words +
+    ``l_max`` scalars, ~4.25 bytes/amplitude) crosses the boundary; the
+    CUDA codec kernels (``csrc/codec.cu``) quantize/dequantize next to the
+    compute, one launch per wave each way, and the host keeps only the
+    lossless zlib/prescan stage and the store.
+
+Both backends read and write the same stored :class:`BlockSegments`
+format, so they are interchangeable mid-simulation.
 
 The pipeline is **wave-coalesced and double-buffered**, as in the JAX
 package:
@@ -48,17 +58,22 @@ import time
 import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..compression.codec import decode_block_host, encode_block_host
+from ..compression.device_codec import (PlaneWire, decode_wave, encode_wave,
+                                        segments_to_wire, sign_wire_bytes,
+                                        wire_to_segments)
 from ..compression.pwrel import PwRelParams
 from ..compression.store import BlockStore
 from ..errors import BlockCorruptionError, StoreIOError
 from .faults import fault_point
 
-__all__ = ["CodecBackend", "HostCodecBackend", "StagePipeline",
+__all__ = ["CodecBackend", "HostCodecBackend", "DeviceCodecBackend",
+           "StagePipeline",
            "make_backend", "complex_to_planes", "planes_to_complex"]
 
 
@@ -239,22 +254,153 @@ class HostCodecBackend(CodecBackend):
             self.add_counts(compressions=len(block_ids))
 
 
+class _DeviceStaged(NamedTuple):
+    """A wave's wire in (pinned) host staging buffers: the first
+    ``n_wire`` planes of ``codes``/``sign_bytes``/``l_max`` are filled;
+    ``plane_map`` (None when every block is wire) names each one's stack
+    plane; ``raws`` holds (row, block, complex64 buffer) per RAW block."""
+
+    codes: torch.Tensor            # (P, n) int16 [u16 bits]
+    sign_bytes: torch.Tensor       # (P, 4*ceil(n/32)) uint8
+    l_max: torch.Tensor            # (P,) f32
+    n_wire: int
+    plane_map: torch.Tensor | None  # (n_wire,) int32
+    raws: list
+    rows: int
+    n_blocks: int
+
+
+class DeviceCodecBackend(CodecBackend):
+    """Device-resident lossy codec: compressed wire crosses the boundary.
+
+    Requires ``compression=True`` (the raw-block toggle has no device
+    half — use :func:`make_backend`, which falls back to the host
+    backend).  A wave's wire crosses in three copies each way and is
+    decoded / encoded in one kernel launch each; RAW-escape blocks
+    (incompressible data) cross as raw complex64, that block only.
+    """
+
+    name = "device"
+
+    def __init__(self, store, params, bsz, compression=True, prescan=True,
+                 *, pin_memory: bool = False):
+        if not compression:
+            raise ValueError("the device codec backend requires "
+                             "compression=True")
+        super().__init__(store, params, bsz, compression, prescan,
+                         pin_memory=pin_memory)
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self.pin_memory)
+
+    def fetch_group_batch(self, key_rows):
+        # inflate every block's segments straight into one set of (pinned)
+        # staging buffers for the wave
+        rows, n_blocks = key_rows.shape
+        n = self.bsz
+        P = 2 * key_rows.size
+        codes = self._host_buffer((P, n), torch.int16)
+        sign_bytes = self._host_buffer((P, sign_wire_bytes(n)), torch.uint8)
+        l_max = self._host_buffer((P,), torch.float32)
+        c_np, s_np, l_np = (codes.numpy().view("<u2"), sign_bytes.numpy(),
+                            l_max.numpy())
+        where, raws = [], []
+        for r, row in enumerate(key_rows):
+            for i, bid in enumerate(row):
+                fault_point("codec.decode")
+                seg = self.store.get_block(int(bid))
+                if seg.is_raw:
+                    raw = self._host_buffer((n,), torch.complex64)
+                    raw.numpy()[:] = np.frombuffer(
+                        seg.raw, dtype=np.complex64, count=seg.n_amps)
+                    raws.append((r, i, raw))
+                    continue
+                for c, w in enumerate(segments_to_wire(seg)):
+                    j = len(where)
+                    c_np[j], s_np[j], l_np[j] = w.codes, w.sign_bytes, \
+                        w.l_max.reshape(())
+                    where.append(2 * (r * n_blocks + i) + c)
+        self.add_counts(decompressions=key_rows.size)
+        plane_map = None
+        if raws and where:
+            plane_map = self._host_buffer((len(where),), torch.int32)
+            plane_map.numpy()[:] = where
+        return _DeviceStaged(codes, sign_bytes, l_max, len(where), plane_map,
+                             raws, rows, n_blocks)
+
+    # the wire staged here was fetched through fetch_group_batch, whose
+    # per-block fault_point covers the path
+    def stage_to_device_batch(self, staged, device):
+        n = self.bsz
+        out = torch.empty((staged.rows, 2, staged.n_blocks * n),
+                          dtype=torch.float32, device=device)
+        k = staged.n_wire
+        if k:
+            wire = [t[:k] for t in (staged.codes, staged.sign_bytes,
+                                    staged.l_max)]
+            self.add_bytes(h2d=sum(t.nbytes for t in wire))
+            codes, sign_bytes, l_max = (t.to(device, non_blocking=True)
+                                        for t in wire)
+            plane_map = (None if staged.plane_map is None else
+                         staged.plane_map.to(device, non_blocking=True))
+            decode_wave(codes, sign_bytes, l_max, n, self.params, out,
+                        plane_map)
+        for r, i, raw in staged.raws:
+            self.add_bytes(h2d=raw.nbytes)
+            amps = raw.to(device, non_blocking=True)
+            out[r, :, i * n:(i + 1) * n] = torch.view_as_real(amps).T
+        return out
+
+    def dispatch_result_batch(self, planes_dev, n_blocks):
+        # the encode kernel and the d2h copies are queued here; only the
+        # event wait in await_result_batch blocks
+        rows = planes_dev.shape[0]
+        wire = encode_wave(planes_dev, self.bsz, self.params)
+        if planes_dev.device.type == "cpu":
+            return wire, None, rows, n_blocks
+        host = tuple(self._host_buffer(tuple(t.shape), t.dtype)
+                     for t in wire)
+        for h, t in zip(host, wire):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(planes_dev.device))
+        return host, done, rows, n_blocks
+
+    def await_result_batch(self, ticket):
+        (codes, sign_bytes, l_max), done, rows, n_blocks = ticket
+        if done is not None:
+            done.synchronize()                    # blocking wait
+        codes = codes.numpy().view("<u2")
+        sign_bytes, l_max = sign_bytes.numpy(), l_max.numpy()
+        self.add_bytes(d2h=codes.nbytes + sign_bytes.nbytes + l_max.nbytes)
+        pairs = [tuple(PlaneWire(codes[q], sign_bytes[q],
+                                 l_max[q:q + 1].reshape(1, 1))
+                       for q in (2 * b, 2 * b + 1))
+                 for b in range(rows * n_blocks)]
+        return [pairs[r * n_blocks:(r + 1) * n_blocks] for r in range(rows)]
+
+    def store_group_batch(self, key_rows, results):
+        for block_ids, pairs in zip(key_rows, results):
+            for pair, bid in zip(pairs, block_ids):
+                fault_point("codec.encode")
+                self.store.put_block(
+                    int(bid), wire_to_segments(pair, self.bsz,
+                                               prescan=self.prescan,
+                                               params=self.params))
+            self.add_counts(compressions=len(block_ids))
+
+
 def make_backend(name: str, store: BlockStore, params: PwRelParams,
                  bsz: int, compression: bool = True, prescan: bool = True,
                  *, pin_memory: bool = False) -> CodecBackend:
     """Resolve an ``EngineConfig.codec_backend`` name to a backend.
 
-    ``"device"`` with compression needs the device codec kernels, which
-    this port does not have yet: it raises ``NotImplementedError``.
-    Without compression it degrades to ``"host"`` with a
-    ``RuntimeWarning``, as in the JAX package — there is no device half to
-    a raw byte copy.
+    ``"device"`` degrades to ``"host"`` (with a ``RuntimeWarning``) when
+    ``compression`` is off — there is no device half to a raw byte copy.
     """
     if name == "device" and compression:
-        raise NotImplementedError(
-            "codec_backend='device' needs the device codec kernels "
-            "(quantize/pack/unpack/dequantize), which come in the next "
-            "slice of the port (ROADMAP A6); use codec_backend='host'")
+        return DeviceCodecBackend(store, params, bsz, compression, prescan,
+                                  pin_memory=pin_memory)
     if name == "device":
         warnings.warn(
             "codec_backend='device' requires compression=True; "

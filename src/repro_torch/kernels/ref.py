@@ -4,12 +4,25 @@ Each function computes exactly what its kernel computes, with torch ops
 on whatever device its inputs live on.  The kernel wrappers run these for
 CPU tensors (the test suite's path), and ``chip_smoke.py`` holds every
 kernel against its plain version on the card.
+
+The codec functions mirror ``repro/kernels/ref.py`` and the Pallas kernel
+bodies of ``repro/kernels/quantize.py`` and ``repro/kernels/pack.py`` in
+f32 (int32 codes, ``torch.round`` half to even).  Codes that cross the
+boundary as u16 are held in int16 tensors carrying the u16 bits (torch has
+no general uint16 arithmetic); sign words are int32 carrying the u32 bits.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gemm_planes_batch_ref"]
+__all__ = ["gemm_planes_batch_ref", "quantize_tiles_ref",
+           "dequantize_tiles_ref", "pack_codes_tiles_ref",
+           "unpack_codes_tiles_ref", "encode_planes_ref",
+           "decode_planes_ref", "tile_rows_for"]
+
+CODE_MAX = 65535
+_LANES = 128
+_WORDS = _LANES // 32
 
 
 def gemm_planes_batch_ref(ar: torch.Tensor, ai: torch.Tensor,
@@ -19,3 +32,165 @@ def gemm_planes_batch_ref(ar: torch.Tensor, ai: torch.Tensor,
     cr = ar @ br - ai @ bi
     ci = ar @ bi + ai @ br
     return cr.to(torch.float32), ci.to(torch.float32)
+
+
+# -- pwrel codec ------------------------------------------------------------
+
+def tile_rows_for(rows: int, tile_rows: int) -> int:
+    """The flag tile height the TPU kernels pick for ``rows`` rows."""
+    tr = min(tile_rows, rows)
+    while rows % tr:
+        tr //= 2
+    return tr
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def _codes(x: torch.Tensor, l_max: torch.Tensor, step) -> torch.Tensor:
+    """f32 values -> int32 codes in [0, CODE_MAX] (``l_max`` broadcasts)."""
+    step = torch.tensor(step, dtype=torch.float32, device=x.device)
+    absx = x.abs()
+    L = torch.log2(torch.clamp(absx, min=1e-45))
+    d = torch.round((l_max - L) / step)
+    codes_f = torch.where(absx <= 0, torch.zeros_like(d), CODE_MAX - d)
+    return torch.clamp(codes_f, 0.0, float(CODE_MAX)).to(torch.int32)
+
+
+def _dequant(codes: torch.Tensor, neg: torch.Tensor, l_max: torch.Tensor,
+             step) -> torch.Tensor:
+    """int32 codes + bool signs -> f32 values (``l_max`` broadcasts)."""
+    step = torch.tensor(step, dtype=torch.float32, device=codes.device)
+    d = CODE_MAX - codes.to(torch.float32)
+    mag = torch.exp2(l_max - d * step)
+    mag = torch.where(codes == 0, torch.zeros_like(mag), mag)
+    return torch.where(neg, -mag, mag)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., W, 32) bool -> (..., W) int32 words, bit i = element i."""
+    lane = torch.arange(32, device=bits.device, dtype=torch.int64)
+    return _wrap_i32((bits.to(torch.int64) << lane).sum(-1))
+
+
+def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words -> (..., W * 32) bool, element i = bit i."""
+    lane = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words.to(torch.int32).unsqueeze(-1) >> lane) & 1
+    return bits.reshape(*words.shape[:-1], -1) == 1
+
+
+def quantize_tiles_ref(x: torch.Tensor, l_max, step: float,
+                       tile_rows: int = 8):
+    """x (rows, 128) f32, l_max (1, 1) f32 -> (codes (rows, 128) int32,
+    packed sign words (rows, 4) int32, per-tile flags (rows/tr, 3) int32:
+    all codes zero / no negatives / all negatives)."""
+    rows, lanes = x.shape
+    if lanes != _LANES:
+        raise ValueError(f"plane must be (rows, {_LANES}), got {tuple(x.shape)}")
+    l_max = torch.as_tensor(l_max, dtype=torch.float32,
+                            device=x.device).reshape(())
+    codes = _codes(x, l_max, step)
+    signs = x < 0
+    packed = _pack_bits(signs.reshape(rows, _WORDS, 32))
+    tr = tile_rows_for(rows, tile_rows)
+    codes_t = codes.reshape(rows // tr, tr * _LANES)
+    signs_t = signs.reshape(rows // tr, tr * _LANES)
+    flags = torch.stack([(codes_t == 0).all(1), (~signs_t).all(1),
+                         signs_t.all(1)], dim=1).to(torch.int32)
+    return codes, packed, flags
+
+
+def dequantize_tiles_ref(codes: torch.Tensor, packed_signs: torch.Tensor,
+                         l_max, step: float) -> torch.Tensor:
+    """codes (rows, 128) int32 + packed signs (rows, 4) int32 -> f32."""
+    l_max = torch.as_tensor(l_max, dtype=torch.float32,
+                            device=codes.device).reshape(())
+    neg = _unpack_bits(packed_signs)
+    return _dequant(codes, neg, l_max, step)
+
+
+def pack_codes_tiles_ref(codes: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) int32 codes in [0, 65535] -> (rows, 64) int32 words,
+    element 2j in the low half and 2j+1 in the high half."""
+    rows = codes.shape[0]
+    pairs = codes.to(torch.int64).reshape(rows, _LANES // 2, 2)
+    return _wrap_i32(pairs[..., 0] | (pairs[..., 1] << 16))
+
+
+def unpack_codes_tiles_ref(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_tiles_ref`: (rows, 64) -> (rows, 128)."""
+    w = packed.to(torch.int32)
+    lo = w & 0xFFFF
+    hi = (w >> 16) & 0xFFFF
+    return torch.stack([lo, hi], dim=-1).reshape(w.shape[0], _LANES)
+
+
+# -- the fused wave versions ------------------------------------------------
+
+def _stack_view(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """(R, 2, N) plane stack -> (R, 2, N/n, n) view of its blocks."""
+    R, two, N = planes.shape
+    if two != 2 or N % n:
+        raise ValueError(f"plane stack {tuple(planes.shape)} does not hold "
+                         f"blocks of {n}")
+    return planes.view(R, 2, N // n, n)
+
+
+def encode_planes_ref(planes: torch.Tensor, n: int, l_max: torch.Tensor,
+                      step: float, flags_tile_rows: int | None = None):
+    """Fused quantize + pack over every block plane of a wave.
+
+    ``planes`` is an (R, 2, N) f32 stack of blocks of ``n``; plane
+    ``q = 2*(r*nb + i) + c`` is component ``c`` of block ``i`` of row ``r``
+    and ``l_max`` holds one f32 per plane in that order.  Returns
+    ``(codes (P, n) int16 [u16 bits], sign words (P, ceil(n/32)) int32,
+    flags (P, T, 3) int32 or None)``; flags are those of ``quantize_tiles``
+    on the plane padded with zeros to whole 128-lane rows.
+    """
+    blocks = _stack_view(planes, n)
+    P = blocks.shape[0] * blocks.shape[2] * 2
+    x = blocks.transpose(1, 2).reshape(P, n)
+    codes = _codes(x, l_max.reshape(P, 1), step)
+    # signs over the plane padded with zeros to whole 128-lane rows
+    rows, words = -(-n // _LANES), -(-n // 32)
+    neg = torch.zeros((P, rows * _LANES), dtype=torch.bool, device=x.device)
+    neg[:, :n] = x < 0
+    signs = _pack_bits(neg[:, :words * 32].reshape(P, words, 32))
+    flags = None
+    if flags_tile_rows is not None:
+        tr = tile_rows_for(rows, flags_tile_rows)
+        padded = torch.zeros((P, rows * _LANES), dtype=torch.int32,
+                             device=x.device)
+        padded[:, :n] = codes
+        codes_t = padded.reshape(P, rows // tr, tr * _LANES)
+        neg_t = neg.reshape(P, rows // tr, tr * _LANES)
+        flags = torch.stack([(codes_t == 0).all(2), (~neg_t).all(2),
+                             neg_t.all(2)], dim=2).to(torch.int32)
+    u16 = torch.where(codes >= 2 ** 15, codes - 2 ** 16, codes)
+    return u16.to(torch.int16), signs, flags
+
+
+def decode_planes_ref(codes: torch.Tensor, signs: torch.Tensor,
+                      l_max: torch.Tensor, step: float, out: torch.Tensor,
+                      n: int, plane_map: torch.Tensor | None = None):
+    """Fused unpack + dequantize, written into the (R, 2, N) stack ``out``.
+
+    ``codes`` (P, n) int16 [u16 bits], ``signs`` (P, ceil(n/32)) int32 and
+    ``l_max`` (P,) f32 are wire planes; wire plane ``j`` lands on stack
+    plane ``plane_map[j]`` (default ``j``), numbered as in
+    :func:`encode_planes_ref`.  Returns ``out``.
+    """
+    blocks = _stack_view(out, n)
+    P = codes.shape[0]
+    c = codes.to(torch.int32) & 0xFFFF
+    neg = _unpack_bits(signs)[:, :n]
+    vals = _dequant(c, neg, l_max.reshape(P, 1), step)
+    q = (torch.arange(P, device=out.device) if plane_map is None
+         else plane_map.to(device=out.device, dtype=torch.int64))
+    blk, comp = q // 2, q % 2
+    nb = blocks.shape[2]
+    blocks[blk // nb, comp, blk % nb] = vals
+    return out
