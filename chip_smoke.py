@@ -4,32 +4,52 @@
 
 Phases, in order (any failure exits non-zero and prints no result):
 
-1. build       — compile every CUDA source under src/repro_torch/csrc/,
-                 one nvcc per source, all started together; time the build.
-2. kernels     — hold each kernel against its plain PyTorch version on the
-                 card, at the main paths' shapes and at small (for the
-                 codec: ragged) shapes, and time kernel, plain version and
-                 (where one exists) one library call beside the kernel's
-                 bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
-                 f32, whichever is larger).
-3. main        — repro_torch.Simulator(build_circuit("qft", 26),
-                 EngineConfig()).run() on cuda:0 (host codec, default
-                 planning).
-4. main_device — repro_torch.Simulator(build_circuit("qft", 28),
-                 EngineConfig(codec_backend="device")).run() on cuda:0
-                 (--device-qubits sets another size, e.g. 26 to compare
-                 the two codecs at one size):
-                 the codec runs in the encode/decode kernels, and the
-                 boundary bytes must equal the plan's wire bytes.
-                 Each main path runs with every launch count set to 0 just
-                 before and read just after; fidelity against the port's
-                 dense oracle computed on the card, then sample(1024) and
-                 one expectation as readout.  With --profile each run is
-                 traced with torch.profiler (CUDA activity only) and a
-                 *_profile line gives device time by kernel and the
-                 device's idle share of the run's wall time.
-5. report      — one JSON line of kernels, the card's name and power
-                 limit, and last the ok line.
+1. build        — compile every CUDA source under src/repro_torch/csrc/,
+                  one nvcc per source, all started together; time the
+                  build.
+2. kernels      — hold each kernel against its plain PyTorch version on the
+                  card, at the main paths' shapes and at small (for the
+                  codec: ragged) shapes, and time kernel, plain version and
+                  (where one exists) one library call beside the kernel's
+                  bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
+                  f32, whichever is larger): gemm_planes_batch, the codec's
+                  encode/decode, gemm_planes, gemm_planes_mid, diag_apply
+                  (within 1e-4 on unit-scale inputs) and the packing
+                  kernels (bit for bit).
+3. ops          — the kernels/ops.py entry points on one group plane of
+                  2^22 amplitudes: quantize_block -> pack_codes ->
+                  unpack_codes -> dequantize_block and pack_sign_bitmap ->
+                  unpack_sign_bitmap, round trips exact and the decode
+                  within b_r; every packing kernel must launch.
+4. single_group — repro_torch.core.execute_schedule on every distinct
+                  stage schedule of qft-26 (one seeded group of 2^22
+                  amplitudes on cuda:0) against execute_schedule_batched
+                  with one lane, within 1e-5 relative 2-norm, and one
+                  synthetic schedule with a minor-most k = 7 diagonal:
+                  gemm_planes and gemm_planes_mid must launch, and
+                  diag_apply exactly once for the synthetic op.
+5. main         — repro_torch.Simulator(build_circuit("qft", 26),
+                  EngineConfig()).run() on cuda:0 (host codec, default
+                  planning).
+6. main_device  — the same for qft-28 with
+                  EngineConfig(codec_backend="device") (--device-qubits
+                  sets another size, e.g. 26 to compare the two codecs at
+                  one size): the codec runs in the encode/decode kernels.
+7. main_pergate — qft-26 with EngineConfig(codec_backend="device",
+                  gate_schedule=False): the per-gate path, one group at a
+                  time; gemm_planes and diag_apply must launch once per
+                  dense / diagonal fused gate per group, encode and decode
+                  once per group, gemm_planes_batch never.
+                  Each main path runs with every launch count set to 0 just
+                  before and read just after; the boundary bytes must equal
+                  the plan's; fidelity against the port's dense oracle
+                  computed on the card, then sample(1024) and one
+                  expectation as readout.  With --profile each run is
+                  traced with torch.profiler (CUDA activity only) and a
+                  *_profile line gives device time by kernel and the
+                  device's idle share of the run's wall time.
+8. report       — one JSON line of kernels, the card's name and power
+                  limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
 or without the repository around it, it exits non-zero.
@@ -51,6 +71,8 @@ FIDELITY_MIN = 0.99
 RTOL, ATOL = 1e-5, 1e-6          # f32 summation order differs from cuBLAS
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+HOST_AHEAD_CYCLES = 100_000_000  # ~50 ms of card clock: the host's queue time
+COLD_BYTES = 128 << 20           # inputs cycled per timing, > 2x the L2
 # the codec kernels against their plain versions (ROADMAP "The pwrel
 # tolerance"): log2f is accurate to 1 ulp, so a code may differ by 1 at a
 # rounding tie, in at most 0.1% of elements; exp2f to 2 ulp
@@ -60,6 +82,10 @@ DECODE_RTOL = 1e-6
 ROUNDTRIP_BOUND = 1.01 * B_R     # b_r + the f32 slack of ROADMAP C
 CODEC_MAIN = (2, 4, 1 << 20)     # (rows, blocks per row, n): a qft-28 wave
 CODEC_RAGGED = (77, 192, 1000, 4097)
+GATE_ATOL = 1e-4                 # B6-B8 against their plain versions
+GROUP_BITS = 22                  # a qft-26 / qft-28 group: 2^22 amplitudes
+GROUP = 1 << GROUP_BITS
+SCHEDULE_RTOL = 1e-5             # execute_schedule vs the batched form
 
 
 def fail(msg: str) -> None:
@@ -77,18 +103,46 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, inputs, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call ``fn(*args)``: CUDA events around ``iters``
+    calls after ``warmup``, cycling through the argument tuples
+    ``inputs`` (see :func:`cold_copies`).  A sleep kernel holds the card
+    while the host queues every call, so a kernel shorter than its
+    wrapper's host overhead is timed on the card, not on the host."""
     import torch
-    for _ in range(warmup):
-        fn()
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_copies(args: tuple, big: tuple[int, ...]) -> list[tuple]:
+    """``args`` and as many copies of it as make a timing loop that cycles
+    through them find its large inputs out of the 50 MB L2 cache, as a
+    caller streaming fresh data would: the tensors at positions ``big``
+    are cloned (COLD_BYTES of them in all), the rest shared."""
+    nbytes = sum(args[i].numel() * args[i].element_size() for i in big)
+    copies = [tuple(args)]
+    while len(copies) * nbytes < COLD_BYTES:
+        copies.append(tuple(a.clone() if i in big else a
+                            for i, a in enumerate(args)))
+    return copies
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take: bytes over its memory rate or
+    f32 operations over its peak rate, whichever is larger."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_FLOP_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
 
 
 # -- phase 2: gemm_planes_batch against its plain version ---------------------
@@ -126,17 +180,16 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
     n_b = 1 if broadcast else L
     bytes_moved = 4 * (2 * L * R * K + 2 * n_b * K * K + 2 * L * R * K)
     flops = 8 * L * R * K * K
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOP_PER_S * 1e3
-    ac = torch.complex(ar, ai)
-    bc = torch.complex(br, bi)
+    b, by = bound(bytes_moved, flops)
+    inputs = [(p[:, 0].reshape(L, R, K), p[:, 1].reshape(L, R, K), br, bi)
+              for (p,) in cold_copies((planes,), (0,))]
+    lib = [(torch.complex(a, c), torch.complex(br, bi))
+           for a, c, _, _ in inputs]
     out.update(
-        ms=cuda_ms(lambda: gemm_planes_batch(ar, ai, br, bi)),
-        plain_ms=cuda_ms(lambda: gemm_planes_batch_ref(ar, ai, br, bi)),
-        library_ms=cuda_ms(lambda: torch.matmul(ac, bc)),
-        bound_ms=max(t_bytes, t_flops),
-        bound_by="bytes" if t_bytes >= t_flops else "operations",
-        bytes=bytes_moved, flops=flops)
+        ms=cuda_ms(gemm_planes_batch, inputs),
+        plain_ms=cuda_ms(gemm_planes_batch_ref, inputs),
+        library_ms=cuda_ms(torch.matmul, lib),
+        bound_ms=b, bound_by=by, bytes=bytes_moved, flops=flops)
     return out
 
 
@@ -247,23 +300,17 @@ def codec_case(R: int, nb: int, n: int, seed: int, timed: bool) -> dict:
     # two clips; decode sub, mul, sub, exp2 (the bytes bound is ~10x more)
     enc_ops, dec_ops = 8 * P * n, 4 * P * n
 
-    def bound(nbytes, ops):
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        to = ops / F32_FLOP_PER_S * 1e3
-        return max(tb, to), "bytes" if tb >= to else "operations"
-
     eb, eby = bound(enc_bytes, enc_ops)
     db, dby = bound(dec_bytes, dec_ops)
+    enc_in = cold_copies((planes, n, l_max, step), (0,))
+    dec_in = cold_copies((ck, sk, l_max, step, out_k, n), (0, 1))
     out["encode"] = {
-        "ms": cuda_ms(lambda: kc.encode_planes(planes, n, l_max, step)),
-        "plain_ms": cuda_ms(
-            lambda: ref.encode_planes_ref(planes, n, l_max, step)),
+        "ms": cuda_ms(kc.encode_planes, enc_in),
+        "plain_ms": cuda_ms(ref.encode_planes_ref, enc_in),
         "bound_ms": eb, "bound_by": eby, "bytes": enc_bytes}
     out["decode"] = {
-        "ms": cuda_ms(
-            lambda: kc.decode_planes(ck, sk, l_max, step, out_k, n)),
-        "plain_ms": cuda_ms(
-            lambda: ref.decode_planes_ref(ck, sk, l_max, step, out_r, n)),
+        "ms": cuda_ms(kc.decode_planes, dec_in),
+        "plain_ms": cuda_ms(ref.decode_planes_ref, dec_in),
         "bound_ms": db, "bound_by": dby, "bytes": dec_bytes}
     return out
 
@@ -319,7 +366,303 @@ def codec_phase() -> dict:
     return {"codec": cases, "codec_tiles": tiles}
 
 
-# -- phases 3 and 4: the main paths --------------------------------------------
+# -- phase 2: the single-group gate kernels against their plain versions ------
+
+def unit_planes(shape, seed: int):
+    """Two unit-scale f32 planes of ``shape`` on the card."""
+    import torch
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    p = torch.randn((2,) + tuple(shape), generator=g, device="cuda:0")
+    return p[0], p[1]
+
+
+def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
+               ops: int, library=None, **shape) -> dict:
+    """One call of a gate kernel against its plain version on the same
+    inputs (max abs error <= GATE_ATOL); with ``timed``, kernel / plain /
+    library times beside the bound, over cold copies of the ``big``
+    inputs (``library`` maps an argument tuple to the library call's
+    arguments: one PyTorch call, ``torch.matmul`` or a multiply)."""
+    import torch
+    cr, ci = fn(*args)
+    rr, ri = ref_fn(*args)
+    torch.cuda.synchronize()
+    err = max(float((cr - rr).abs().max()), float((ci - ri).abs().max()))
+    out = {**shape, "max_abs_err": err, "ok": err <= GATE_ATOL}
+    if timed:
+        b, by = bound(nbytes, ops)
+        inputs = cold_copies(args, big)
+        lib_fn, lib_args = library
+        out.update(ms=cuda_ms(fn, inputs),
+                   plain_ms=cuda_ms(ref_fn, inputs),
+                   library_ms=cuda_ms(lib_fn, [lib_args(a) for a in inputs]),
+                   bound_ms=b, bound_by=by, bytes=nbytes, flops=ops)
+    print(f"kernel_check {name} " + json.dumps(out), flush=True)
+    if not out["ok"]:
+        fail(f"{name} disagrees with its plain version at {shape}: max abs "
+             f"err {err:.3e} (bound {GATE_ATOL})")
+    return out
+
+
+def gemm_planes_case(R: int, K: int, seed: int, timed: bool) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gate_apply as ga
+    from repro_torch.kernels import ref
+    ar, ai = unit_planes((R, K), seed)
+    ur, ui = unit_planes((K, K), seed + 1)
+    br, bi = ur.T / np.sqrt(K), ui.T / np.sqrt(K)   # U^T, strided views
+    return gate_check(
+        "gemm_planes", ga.gemm_planes, ref.gemm_planes_ref,
+        (ar, ai, br, bi), (0, 1), timed, 4 * (4 * R * K + 2 * K * K),
+        8 * R * K * K, (torch.matmul, lambda a: (torch.complex(a[0], a[1]),
+                                                  torch.complex(a[2], a[3]))),
+        R=R, K=K)
+
+
+def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
+                         timed: bool) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import gate_apply as ga
+    from repro_torch.kernels import ref
+    ar, ai = unit_planes((O, K, I), seed)
+    ur, ui = unit_planes((K, K), seed + 1)
+    ur, ui = ur / np.sqrt(K), ui / np.sqrt(K)
+    return gate_check(
+        "gemm_planes_mid", ga.gemm_planes_mid, ref.gemm_planes_mid_ref,
+        (ar, ai, ur, ui), (0, 1), timed, 4 * (4 * O * K * I + 2 * K * K),
+        8 * O * K * K * I, (torch.matmul,
+                            lambda a: (torch.complex(a[2], a[3]),
+                                       torch.complex(a[0], a[1]))),
+        O=O, K=K, I=I)
+
+
+def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
+    import torch
+    from repro_torch.kernels import gate_apply as ga
+    from repro_torch.kernels import ref
+    ar, ai = unit_planes((R, K), seed)
+    phase = unit_planes((K,), seed + 1)[0]
+    dr, di = torch.cos(phase), torch.sin(phase)
+    return gate_check(
+        "diag_apply", ga.diag_apply, ref.diag_apply_ref, (ar, ai, dr, di),
+        (0, 1), timed, 4 * (4 * R * K + 2 * K), 6 * R * K,
+        (torch.mul, lambda a: (torch.complex(a[0], a[1]),
+                               torch.complex(a[2], a[3]))), R=R, K=K)
+
+
+def gate_phase() -> dict:
+    """B6 at R*K = 2^22 (K = 4, 16, 32, 128: the per-gate and schedule
+    shapes), B7 at the schedules' (O, K, I), B8 at K = 4, 32, 128; then
+    small and odd shapes untimed."""
+    b6 = [gemm_planes_case(GROUP // K, K, seed=10 + K, timed=True)
+          for K in (4, 16, 32, 128)]
+    b6 += [gemm_planes_case(R, K, seed=20 + i, timed=False)
+           for i, (R, K) in enumerate([(7, 2), (33, 8), (5, 64), (3, 128)])]
+    b7 = [gemm_planes_mid_case(1, 4, 1 << 20, seed=30, timed=True),
+          gemm_planes_mid_case(1, 32, 1 << 17, seed=31, timed=True)]
+    b7 += [gemm_planes_mid_case(O, K, I, seed=40 + i, timed=False)
+           for i, (O, K, I) in enumerate([(3, 16, 128), (2, 2, 160),
+                                          (2, 64, 256), (1, 128, 384),
+                                          (5, 8, 200)])]
+    b8 = [diag_apply_case(GROUP // K, K, seed=50 + K, timed=True)
+          for K in (4, 32, 128)]
+    b8 += [diag_apply_case(R, K, seed=60 + i, timed=False)
+           for i, (R, K) in enumerate([(3, 2), (5, 1), (7, 16)])]
+    return {"gemm_planes": b6, "gemm_planes_mid": b7, "diag_apply": b8}
+
+
+# -- phase 2: the standalone packing kernels, bit for bit ---------------------
+
+def pack_case(rows: int, seed: int, timed: bool) -> list[dict]:
+    """pack/unpack of codes and of sign bitmaps at ``rows`` x 128 against
+    their plain versions, bit for bit; with ``timed``, kernel / plain
+    times beside the bytes bound (no library call packs bits; one cast,
+    ``to(int16)`` viewed as int32 words, packs u16 codes)."""
+    import torch
+    from repro_torch.kernels import pack as pk
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    n = rows * 128
+    codes = torch.randint(0, 65536, (rows, 128), generator=g,
+                          device="cuda:0", dtype=torch.int32)
+    bits = (torch.rand((rows, 128), generator=g, device="cuda:0") < 0.5) \
+        .to(torch.int32)
+    words = pk.pack_codes_tiles(codes)
+    signs = pk.pack_bitmap_tiles(bits)
+
+    def lib_pack(c):
+        return c.to(torch.int16).view(torch.int32)
+
+    cases = [
+        ("pack_codes_tiles", pk.pack_codes_tiles, ref.pack_codes_tiles_ref,
+         codes, 4 * n + 2 * n, lib_pack),
+        ("unpack_codes_tiles", pk.unpack_codes_tiles,
+         ref.unpack_codes_tiles_ref, words, 2 * n + 4 * n, None),
+        ("pack_bitmap_tiles", pk.pack_bitmap_tiles,
+         ref.pack_bitmap_tiles_ref, bits, 4 * n + n // 8, None),
+        ("unpack_bitmap_tiles", pk.unpack_bitmap_tiles,
+         ref.unpack_bitmap_tiles_ref, signs, n // 8 + 4 * n, None),
+    ]
+    out = []
+    for name, kern, plain, x, nbytes, lib in cases:
+        got, want = kern(x), plain(x)
+        torch.cuda.synchronize()
+        c = {"name": name, "rows": rows,
+             "equal": bool(torch.equal(got, want)),
+             "max_abs_err": int((got.long() - want.long()).abs().max())}
+        if name == "unpack_codes_tiles":
+            c["equal"] = c["equal"] and bool(torch.equal(got, codes))
+        if name == "unpack_bitmap_tiles":
+            c["equal"] = c["equal"] and bool(torch.equal(got, bits))
+        if timed:
+            b, by = bound(nbytes, 0)
+            inputs = cold_copies((x,), (0,))
+            lib_ok = lib is not None and bool(torch.equal(lib(x), want))
+            c.update(ms=cuda_ms(kern, inputs), plain_ms=cuda_ms(plain, inputs),
+                     library_ms=cuda_ms(lib, inputs) if lib_ok else None,
+                     bound_ms=b, bound_by=by, bytes=nbytes)
+        print("kernel_check packing " + json.dumps(c), flush=True)
+        if not c["equal"]:
+            fail(f"{name} differs from its plain version at rows={rows}")
+        out.append(c)
+    return out
+
+
+def pack_phase() -> dict:
+    cases = pack_case(GROUP // 128, seed=70, timed=True)
+    for i, rows in enumerate((1, 8, 24, 33)):
+        cases += pack_case(rows, seed=71 + i, timed=False)
+    by_name: dict[str, list] = {}
+    for c in cases:
+        by_name.setdefault(c["name"], []).append(c)
+    return by_name
+
+
+# -- phase 3: the kernels/ops.py entry points ---------------------------------
+
+def group_state(seed: int):
+    """One seeded, normalised complex64 group of 2^22 amplitudes."""
+    import torch
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    z = torch.randn((2, GROUP), generator=g, device="cuda:0")
+    z = z / z.norm()
+    return z
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import codec, gate_apply, pack
+    gate_apply.reset_launch_counts()
+    codec.reset_launch_counts()
+    pack.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import codec, gate_apply, pack
+    return {**gate_apply.launch_counts, **codec.launch_counts,
+            **pack.launch_counts}
+
+
+def ops_phase() -> dict:
+    """quantize_block -> pack_codes -> unpack_codes -> dequantize_block and
+    pack_sign_bitmap -> unpack_sign_bitmap on the real plane of a group,
+    with every launch count set to 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    x = group_state(80)[0].contiguous()
+    reset_counts()
+    t0 = time.perf_counter()
+    codes, signs, flags, l_max = ops.quantize_block(x, B_R)
+    words = ops.pack_codes(codes)
+    back = ops.unpack_codes(words)
+    neg = ops.unpack_sign_bitmap(signs)
+    signs2 = ops.pack_sign_bitmap(neg)
+    y = ops.dequantize_block(back, signs2, l_max, B_R)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    nz = x != 0
+    rel = float(((y - x).abs()[nz] / x.abs()[nz]).max())
+    out = {"n": GROUP, "wall_s": wall, "codes_round_trip":
+           bool(torch.equal(back, codes)),
+           "signs_round_trip": bool(torch.equal(signs2, signs)),
+           "signs_match_x": bool(torch.equal(neg, x < 0)),
+           "roundtrip_max_rel": rel,
+           "launches": {k: v for k, v in launches.items() if v}}
+    print("ops_check " + json.dumps(out), flush=True)
+    if not (out["codes_round_trip"] and out["signs_round_trip"]
+            and out["signs_match_x"] and rel <= ROUNDTRIP_BOUND):
+        fail(f"the ops round trip is wrong: {json.dumps(out)}")
+    for k in ("pack_codes_tiles", "unpack_codes_tiles", "pack_bitmap_tiles",
+              "unpack_bitmap_tiles", "encode", "decode"):
+        if launches[k] <= 0:
+            fail(f"the ops path launched {k} no time")
+    return launches
+
+
+# -- phase 4: the single-group scheduled compute ------------------------------
+
+def single_group_phase() -> dict:
+    """execute_schedule on every distinct stage schedule of qft-26 against
+    execute_schedule_batched with one lane, then a synthetic schedule with
+    a minor-most k = 7 diagonal."""
+    import numpy as np
+    import torch
+    from repro_torch import EngineConfig, Simulator, build_circuit
+    from repro_torch.core.schedule import (compile_schedule,
+                                           execute_schedule,
+                                           execute_schedule_batched)
+
+    with Simulator(build_circuit("qft", MAIN_QUBITS), EngineConfig()) as sim:
+        scheds = {}
+        for bs in sim._engine._bind_stages(None):
+            if bs.plan:
+                scheds.setdefault((bs.plan, bs.sched.nv), (bs.sched, bs.mats))
+    z = group_state(90)
+    cases = []
+    reset_counts()
+    for i, (sched, mats) in enumerate(scheds.values()):
+        if sched.nv != GROUP_BITS:
+            fail(f"a qft-{MAIN_QUBITS} group has {sched.nv} qubits, not "
+                 f"{GROUP_BITS}")
+        got = execute_schedule(sched, z.clone(), mats, use_kernel=True)
+        cases.append((sched, mats, got))
+    launches = read_counts()
+    out = []
+    for sched, mats, got in cases:
+        want = execute_schedule_batched(
+            sched, z.clone().unsqueeze(0),
+            [m.unsqueeze(0) for m in mats], use_kernel=True)[0]
+        rel = float((got - want).norm() / want.norm())
+        out.append({"ops": len(sched.ops), "rel_2norm": rel})
+        if not rel <= SCHEDULE_RTOL:
+            fail(f"execute_schedule differs from the batched form by "
+                 f"{rel:.3e} (relative 2-norm, bound {SCHEDULE_RTOL})")
+    # a minor-most k = 7 diagonal: the one schedule branch of diag_apply
+    plan = ((tuple(range(7)), True),)
+    sched = compile_schedule(plan, GROUP_BITS)
+    phase = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 2 * np.pi, 128).astype(np.float32)).to("cuda:0")
+    dmat = torch.stack([torch.cos(phase), torch.sin(phase)])
+    before = read_counts()["diag_apply"]
+    got = execute_schedule(sched, z.clone(), [dmat], use_kernel=True)
+    diag_launches = read_counts()["diag_apply"] - before
+    want = execute_schedule(sched, z.clone(), [dmat], use_kernel=False)
+    rel = float((got - want).norm() / want.norm())
+    res = {"schedules": len(cases), "cases": out, "launches": launches,
+           "synthetic_diag": {"launches": diag_launches, "rel_2norm": rel}}
+    print("single_group_check " + json.dumps(res), flush=True)
+    if launches["gemm_planes"] <= 0 or launches["gemm_planes_mid"] <= 0:
+        fail("the single-group phase launched gemm_planes or "
+             "gemm_planes_mid no time")
+    if diag_launches != 1 or not rel <= SCHEDULE_RTOL:
+        fail(f"the minor-most k=7 diagonal: {diag_launches} diag_apply "
+             f"launches (want 1), relative 2-norm {rel:.3e}")
+    return launches
+
+
+# -- phases 5 to 7: the main paths --------------------------------------------
 
 def device_profile(prof, wall_s: float) -> dict:
     """Device time by kernel name from a CUDA-activity trace, and the
@@ -335,39 +678,64 @@ def device_profile(prof, wall_s: float) -> dict:
                     for k, ms, c in rows[:12]]}
 
 
-def main_phase(label: str, qubits: int, backend: str,
-               profile: bool) -> dict:
+def expected_launches(sim, backend: str, gate_schedule: bool) -> dict:
+    """The launches a run must show: on the per-gate path exactly one
+    gemm_planes per dense and one diag_apply per diagonal fused gate per
+    group, and one encode and one decode per group, from the bound
+    stages; on the wave path gemm_planes_batch (and the codec kernels)
+    at least once (None = at least once)."""
+    if gate_schedule:
+        want = {"gemm_planes_batch": None}
+        if backend == "device":
+            want.update(encode=None, decode=None)
+        return want
+    bound = [bs for bs in sim._engine._bind_stages(None) if bs.plan]
+    groups = sum(bs.layout.n_groups for bs in bound)
+    return {
+        "gemm_planes": sum(sum(not d for _, d in bs.plan)
+                           * bs.layout.n_groups for bs in bound),
+        "diag_apply": sum(sum(d for _, d in bs.plan) * bs.layout.n_groups
+                          for bs in bound),
+        "gemm_planes_batch": 0,
+        "encode": groups if backend == "device" else 0,
+        "decode": groups if backend == "device" else 0}
+
+
+def main_phase(label: str, qubits: int, backend: str, profile: bool,
+               gate_schedule: bool = True) -> dict:
     """Drive Simulator(build_circuit("qft", qubits),
-    EngineConfig(codec_backend=backend)).run() on cuda:0 with every launch
-    count set to 0 just before and read just after; check the state
-    against the dense oracle and read it out.  Returns the launches."""
+    EngineConfig(codec_backend=backend, gate_schedule=...)).run() on
+    cuda:0 with every launch count set to 0 just before and read just
+    after; check the launches, the state against the dense oracle and
+    read it out.  Returns the launches."""
     import numpy as np
     import torch
     from repro_torch import (EngineConfig, Simulator, build_circuit,
                              fidelity, zsum_cost_fn)
     from repro_torch.core.dense_engine import simulate_dense
-    from repro_torch.kernels import codec, gate_apply
 
     circuit = build_circuit("qft", qubits)
     torch.cuda.reset_peak_memory_stats()
-    sim = Simulator(circuit, EngineConfig(codec_backend=backend))
+    sim = Simulator(circuit, EngineConfig(codec_backend=backend,
+                                          gate_schedule=gate_schedule))
     plan = sim.compile()
+    want = expected_launches(sim, backend, gate_schedule)
     print(f"{label}_plan qft-{qubits} codec={backend} "
+          f"gate_schedule={gate_schedule} "
           f"local_bits={plan.local_bits} stages={plan.n_stages} "
-          f"depth={plan.pipeline_depth} device={sim._engine.device}",
-          flush=True)
+          f"depth={plan.pipeline_depth} device={sim._engine.device} "
+          f"expected_launches={json.dumps(want)}", flush=True)
     trace = contextlib.nullcontext()
     if profile:
         from torch.profiler import ProfilerActivity
         trace = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
-    gate_apply.reset_launch_counts()
-    codec.reset_launch_counts()
+    reset_counts()
     with trace as prof:
         t0 = time.perf_counter()
         result = sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {**gate_apply.launch_counts, **codec.launch_counts}
+    launches = read_counts()
     st = sim.stats
     peak_dev = torch.cuda.max_memory_allocated()
     print(f"{label}_stats " + json.dumps({
@@ -381,11 +749,12 @@ def main_phase(label: str, qubits: int, backend: str,
     if profile:
         print(f"{label}_profile " + json.dumps(device_profile(prof, wall)),
               flush=True)
-    want = ["gemm_planes_batch"] + (["encode", "decode"]
-                                    if backend == "device" else [])
-    for k in want:
-        if launches[k] <= 0:
+    for k, n in want.items():
+        if n is None and launches[k] <= 0:
             fail(f"the {label} path launched {k} no time")
+        if n is not None and launches[k] != n:
+            fail(f"the {label} path launched {k} {launches[k]} times, "
+                 f"not {n}")
     # every block of every stage crosses once each way, as the plan prices
     # it (device codec: wire; a RAW-escape block would cross raw instead)
     wire = (sum(sp.est_h2d_bytes for sp in plan.stages if sp.plan),
@@ -417,6 +786,64 @@ def main_phase(label: str, qubits: int, backend: str,
     if sum(counts.values()) != 1024 or not np.isfinite(zsum):
         fail(f"{label}: readout returned a malformed sample or expectation")
     return launches
+
+
+# -- phase 8: the report -------------------------------------------------------
+
+GATE_CU = "src/repro_torch/csrc/gate_apply.cu"
+PACK_CU = "src/repro_torch/csrc/pack.cu"
+#: kernel -> (source, the TPU kernel's pl.pallas_call, the path whose
+#: launches are reported, the timed case's selector)
+KERNELS = {
+    "gemm_planes_batch": (GATE_CU, "src/repro/kernels/gate_apply.py:112",
+                          "main_device", {"K": 32}),
+    "encode": ("src/repro_torch/csrc/codec.cu",
+               "src/repro/kernels/quantize.py:75, "
+               "src/repro/kernels/pack.py:61", "main_device", None),
+    "decode": ("src/repro_torch/csrc/codec.cu",
+               "src/repro/kernels/pack.py:85, "
+               "src/repro/kernels/quantize.py:123", "main_device", None),
+    "gemm_planes": (GATE_CU, "src/repro/kernels/gate_apply.py:69",
+                    "main_pergate", {"K": 32}),
+    "gemm_planes_mid": (GATE_CU, "src/repro/kernels/gate_apply.py:153",
+                        "single_group", {"K": 32}),
+    "diag_apply": (GATE_CU, "src/repro/kernels/gate_apply.py:186",
+                   "main_pergate", {"K": 32}),
+    "pack_codes_tiles": (PACK_CU, "src/repro/kernels/pack.py:61", "ops",
+                         {}),
+    "unpack_codes_tiles": (PACK_CU, "src/repro/kernels/pack.py:85", "ops",
+                           {}),
+    "pack_bitmap_tiles": (PACK_CU, "src/repro/kernels/pack.py:109", "ops",
+                          {}),
+    "unpack_bitmap_tiles": (PACK_CU, "src/repro/kernels/pack.py:132", "ops",
+                            {}),
+}
+
+
+def kernel_report(checks: dict, launches: dict) -> list[dict]:
+    """One entry per kernel of the port: its timed main-shape case, its
+    worst error over every case, and its launches on the path that runs
+    it (the codec kernels: their fused wave case)."""
+    out = []
+    for name, (source, replaces, path, sel) in KERNELS.items():
+        if name in ("encode", "decode"):
+            t = checks["codec"][0][name]
+            err = (max(c["max_code_diff"] for c in checks["codec"])
+                   if name == "encode" else
+                   max(c["decode_max_abs"] for c in checks["codec"]))
+            t = {**t, "library_ms": None}
+        else:
+            cases = checks[name]
+            t = next(c for c in cases if "ms" in c
+                     and all(c.get(k) == v for k, v in sel.items()))
+            err = max(c["max_abs_err"] for c in cases)
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[path][name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    return out
 
 
 def main() -> int:
@@ -454,38 +881,17 @@ def main() -> int:
 
     checks = kernel_phase()
     checks.update(codec_phase())
-    main_phase("main", MAIN_QUBITS, "host", args.profile)
-    launches = main_phase("main_device", args.device_qubits, "device",
-                          args.profile)
-
-    main_k32 = next(c for c in checks["gemm_planes_batch"] if c["K"] == 32)
-    worst = max(c["max_abs_err"] for c in checks["gemm_planes_batch"])
-    kernels = [{
-        "name": "gemm_planes_batch", "route": "cuda",
-        "source": "src/repro_torch/csrc/gate_apply.cu",
-        "replaces": "src/repro/kernels/gate_apply.py:112",
-        "launches": launches["gemm_planes_batch"],
-        "max_abs_err": worst, "ms": main_k32["ms"],
-        "plain_ms": main_k32["plain_ms"], "bound_ms": main_k32["bound_ms"],
-        "bound_by": main_k32["bound_by"],
-        "library_ms": main_k32["library_ms"]}]
-    codec_main = checks["codec"][0]
-    errs = {"encode": max(c["max_code_diff"] for c in checks["codec"]),
-            "decode": max(c["decode_max_abs"] for c in checks["codec"])}
-    replaces = {"encode": "src/repro/kernels/quantize.py:75, "
-                          "src/repro/kernels/pack.py:61",
-                "decode": "src/repro/kernels/pack.py:85, "
-                          "src/repro/kernels/quantize.py:123"}
-    for k in ("encode", "decode"):
-        t = codec_main[k]
-        kernels.append({
-            "name": k, "route": "cuda",
-            "source": "src/repro_torch/csrc/codec.cu",
-            "replaces": replaces[k], "launches": launches[k],
-            "max_abs_err": errs[k], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    checks.update(gate_phase())
+    checks.update(pack_phase())
+    launches = {"ops": ops_phase(), "single_group": single_group_phase()}
+    launches["main"] = main_phase("main", MAIN_QUBITS, "host", args.profile)
+    launches["main_device"] = main_phase("main_device", args.device_qubits,
+                                         "device", args.profile)
+    launches["main_pergate"] = main_phase("main_pergate", MAIN_QUBITS,
+                                          "device", args.profile,
+                                          gate_schedule=False)
+    print(json.dumps({"kernels": kernel_report(checks, launches)}),
+          flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,11 +28,12 @@ Public API — the names of ``repro`` that this port has so far:
                  PressureMonitor
 
 Both codec backends run: ``codec_backend="host"`` and the device-resident
-codec ``codec_backend="device"``.  Not ported yet (they raise
+codec ``codec_backend="device"``, and both stage computes: the scheduled
+wave path (default) and the per-gate path (``gate_schedule=False``), as
+does the ``per_gate=True`` baseline.  Not ported yet (they raise
 ``NotImplementedError``): batched runs (``Simulator.run_batch``,
-``run(trajectories=K)``), several devices or a mesh, and the per-gate path
-(``gate_schedule=False``).  ``SimService`` and the noise-channel helpers
-are not exported yet.
+``run(trajectories=K)``) and several devices or a mesh.  ``SimService``
+and the noise-channel helpers are not exported yet.
 
 Quickstart::
 

@@ -23,5 +23,7 @@ from .pipeline import (  # noqa: F401
 )
 from .measure import block_probabilities, expect_diagonal, sample_counts  # noqa: F401
 from .result import BatchResult, SimResult  # noqa: F401
-from .schedule import StageSchedule, compile_schedule, execute_schedule_batched  # noqa: F401
+from .schedule import (  # noqa: F401
+    StageSchedule, compile_schedule, execute_schedule, execute_schedule_batched,
+)
 from .simulator import Simulator, circuit_fingerprint  # noqa: F401

@@ -19,11 +19,15 @@ On the device the group is *planes-resident*: it lives as a (2, 2^(b+m))
 f32 re/im plane stack from decode through every fused gate to encode, and
 each stage's gate list is compiled into a transpose-minimizing schedule
 (:mod:`repro_torch.core.schedule`) whose dense minor-most gates run in the
-hand-written ``gemm_planes_batch`` kernel.
+hand-written ``gemm_planes_batch`` kernel, a wave of groups at a time.
+``gate_schedule=False`` keeps the per-gate path instead (a complex64
+round-trip and a transpose pair per fused gate, one group at a time,
+through ``kernels/ops.py::apply_fused_gate`` and its ``gemm_planes`` /
+``diag_apply`` kernels).
 
 This is the PyTorch port of ``repro.core.engine``: one circuit, one device,
-one lane.  Batched runs, several devices and the per-gate path raise
-``NotImplementedError`` until they are ported.
+one lane.  Batched runs and several devices raise ``NotImplementedError``
+until they are ported.
 """
 from __future__ import annotations
 
@@ -39,17 +43,20 @@ import torch
 from ..compression.pwrel import PwRelParams
 from ..compression.store import BlockStore
 from .circuit import Circuit, Gate
+from .dense_engine import apply_matrix
 from .devices import resolve_device
 from .fusion import FusedGate
 from .groups import GroupLayout
 from .partition import Partition, Stage, partition_circuit
-from .pipeline import StagePipeline, make_backend
+from .pipeline import (StagePipeline, complex_to_planes, make_backend,
+                       planes_to_complex)
 from .plan import ExecutionPlan, circuit_fingerprint, plan_fingerprint
 from .planner import (assemble_plan, estimate_bytes_per_amp, fuse_stage,
                       resolve_config)
 from .pressure import PressureMonitor
 from .result import collect_statevector
-from .schedule import StageSchedule, compile_schedule, execute_schedule_batched
+from .schedule import (StageSchedule, compile_schedule, execute_schedule,
+                       execute_schedule_batched)
 
 __all__ = ["EngineConfig", "SimStats", "BMQSimEngine", "simulate_bmqsim"]
 
@@ -93,14 +100,16 @@ class EngineConfig:
         ram_budget_bytes: primary-tier budget of the two-level store (§4.4);
             overflow spills to disk.
         spill_dir: secondary-tier directory (default: a temp dir).
-        use_kernel: apply every dense minor-most gate through the
-            hand-written ``gemm_planes_batch`` kernel instead of plain
-            torch products (default: on; on the CPU the kernel wrapper
-            runs its plain version).
+        use_kernel: apply gates through the hand-written gate kernels
+            (``kernels/gate_apply.py``) instead of plain torch products
+            (default: on; on the CPU the kernel wrappers run their plain
+            versions).
         gate_schedule: compile each stage's gate list into a
             transpose-minimizing schedule over f32 re/im planes
-            (:mod:`repro_torch.core.schedule`).  False (the per-gate
-            path) is not ported yet and raises ``NotImplementedError``.
+            (:mod:`repro_torch.core.schedule`).  False restores the
+            per-gate path (transpose -> apply -> inverse transpose per
+            fused unitary, complex64 round-trip per gate, one group at a
+            time) — kept for the side-by-side comparison.
         devices: the run's device, as a one-element list of
             :class:`torch.device` (default: ``cuda:0``, which must
             exist; pass ``[torch.device("cpu")]`` to run the kernels'
@@ -289,8 +298,62 @@ class SimStats:
 
 
 # --------------------------------------------------------------------------
-# stage compute: fused unitaries applied to a planes-resident wave
+# stage compute: fused unitaries applied to a planes-resident group
 # --------------------------------------------------------------------------
+#
+# The group lives as a (2, 2^(b+m)) f32 re/im plane stack from the codec
+# backend's decode output through every fused gate to the encode input.
+# The default path executes the stage's compiled transpose-minimizing
+# schedule over a wave of groups at once (_stage_fn_wave);
+# gate_schedule=False keeps the per-gate path (complex64 round-trip + a
+# transpose pair per gate), which the pipeline runs one group at a time
+# through _stage_fn.
+
+def _apply_fused(amps: torch.Tensor, mats, plan, nv: int) -> torch.Tensor:
+    for mat, (vqubits, diag) in zip(mats, plan):
+        if diag:
+            # diagonal fast path: elementwise multiply, no GEMM
+            k = len(vqubits)
+            axes = [nv - 1 - q for q in vqubits]
+            rest = [a for a in range(nv) if a not in axes]
+            perm = rest + [axes[j] for j in range(k - 1, -1, -1)]
+            t = amps.reshape((2,) * nv).permute(perm).reshape(-1, 2 ** k)
+            t = t * mat[None, :].to(t.dtype)
+            inv = np.argsort(np.asarray(perm)).tolist()
+            amps = t.reshape((2,) * nv).permute(inv).reshape(-1)
+        else:
+            amps = apply_matrix(amps, mat, vqubits, nv)
+    return amps
+
+
+@lru_cache(maxsize=512)
+def _stage_fn(plan: tuple[tuple[tuple[int, ...], bool], ...], nv: int,
+              use_kernel: bool, gate_schedule: bool):
+    """Single-group (2, 2^nv) -> (2, 2^nv) planes update, cached on the
+    stage *structure* so stages with identical access patterns share one
+    function.  The scheduled form updates the planes in place (the
+    decoded input is dead once the stage consumes it)."""
+    if gate_schedule:
+        sched = compile_schedule(plan, nv)
+
+        def fn(planes, *mats):
+            return execute_schedule(sched, planes, mats,
+                                    use_kernel=use_kernel)
+    elif use_kernel:
+        from ..kernels import ops as kops
+
+        def fn(planes, *mats):
+            amps = planes_to_complex(planes)
+            for mat, (vqubits, diag) in zip(mats, plan):
+                amps = kops.apply_fused_gate(amps, mat, vqubits, nv, diag)
+            return complex_to_planes(amps)
+    else:
+        def fn(planes, *mats):
+            amps = planes_to_complex(planes)
+            amps = _apply_fused(amps, mats, plan, nv)
+            return complex_to_planes(amps)
+    return fn
+
 
 @lru_cache(maxsize=256)
 def _stage_fn_wave(plan: tuple[tuple[tuple[int, ...], bool], ...], nv: int,
@@ -314,14 +377,20 @@ def _stage_fn_wave(plan: tuple[tuple[tuple[int, ...], bool], ...], nv: int,
 
 def _stage_mats(vgates: list[FusedGate],
                 plan: tuple[tuple[tuple[int, ...], bool], ...],
-                device: torch.device) -> list[torch.Tensor]:
-    """Per-gate operands of the scheduled path on ``device``: stacked
-    (2, K, K) f32 planes of U, or (2, K) diagonal planes."""
+                device: torch.device,
+                gate_schedule: bool) -> list[torch.Tensor]:
+    """Per-gate operands on ``device`` in the form the selected stage path
+    consumes: stacked (2, K, K) f32 planes of U (or (2, K) diagonal
+    planes) for the scheduled path, complex64 matrices (or diagonals) for
+    the per-gate path."""
     mats = []
     for fg, (_, diag) in zip(vgates, plan):
         m = np.diag(fg.matrix) if diag else fg.matrix
-        mats.append(torch.as_tensor(
-            np.stack([m.real, m.imag]).astype(np.float32), device=device))
+        if gate_schedule:
+            m = np.stack([m.real, m.imag]).astype(np.float32)
+        else:
+            m = np.asarray(m, np.complex64)
+        mats.append(torch.as_tensor(m, device=device))
     return mats
 
 
@@ -334,6 +403,7 @@ class _BoundStage(NamedTuple):
     plan: tuple                       # ((vqubits, is_diagonal), ...)
     mats: list                        # binding-specific operands
     key: tuple                        # stage-fn cache key
+    fn: object                        # single-group planes -> planes update
     sched: StageSchedule | None       # compiled schedule (None if empty)
     wave_fn: object = None            # row-batched update (wave scheduler)
 
@@ -370,9 +440,6 @@ class BMQSimEngine:
             raise _not_ported("a simulation mesh (mesh_shape)", "A10")
         if config.devices and len(config.devices) > 1:
             raise _not_ported("multi-device placement", "A10")
-        if not config.gate_schedule:
-            raise _not_ported("the per-gate path (gate_schedule=False)",
-                              "A9")
         self.circuit = circuit
         self._circuit_fp = circuit_fingerprint(circuit)
         self.n = circuit.n_qubits
@@ -520,15 +587,20 @@ class BMQSimEngine:
         for layout, gates in self._stages:
             vgates, plan = fuse_stage(layout, gates,
                                       self.cfg.max_fused_qubits, params)
-            mats = _stage_mats(vgates, plan, self.device)
+            mats = _stage_mats(vgates, plan, self.device,
+                               self.cfg.gate_schedule)
             self.stats.n_fused_unitaries += len(vgates)
             nv = layout.b + layout.m
             fkey = (plan, nv, self.cfg.use_kernel, self.cfg.gate_schedule,
                     self._interpret)
+            fn = (_stage_fn(plan, nv, self.cfg.use_kernel,
+                            self.cfg.gate_schedule) if plan else None)
+            # the scheduled path gets the row-batched wave form too (the
+            # per-gate path has none — the pipeline runs it sequentially)
             wave_fn = (_stage_fn_wave(plan, nv, self.cfg.use_kernel)
-                       if plan else None)
+                       if plan and self.cfg.gate_schedule else None)
             sched = compile_schedule(plan, nv) if plan else None
-            bound.append(_BoundStage(layout, plan, mats, fkey, sched,
+            bound.append(_BoundStage(layout, plan, mats, fkey, fn, sched,
                                      wave_fn))
         self._bound[key] = bound
         while len(self._bound) > _BOUND_CACHE_SIZE:
@@ -651,14 +723,17 @@ class BMQSimEngine:
                 else:
                     self._seen_stagefns.add(bs.key)
                     self.stats.n_stagefn_compiles += 1
+                # transpose accounting: both counters are recorded
+                # whichever path executes, so the scheduled/naive ratio is
+                # always reportable
                 self.stats.n_transposes_naive += \
                     bs.sched.n_transposes_naive * bs.layout.n_groups
                 self.stats.n_transposes_scheduled += \
                     bs.sched.n_transposes * bs.layout.n_groups
                 sh2d, sd2h = back.h2d_bytes, back.d2h_bytes
                 self.stats.per_stage_exchange_bytes.append(0)
-                pipe.run_stage(bs.layout.group_block_ids(), bs.wave_fn,
-                               bs.mats)
+                pipe.run_stage(bs.layout.group_block_ids(), bs.fn, bs.mats,
+                               wave_fn=bs.wave_fn)
                 self.stats.per_stage_boundary_bytes.append(
                     (back.h2d_bytes - sh2d, back.d2h_bytes - sd2h))
                 if not first_done:

@@ -48,6 +48,10 @@ package:
 fetch→stage→compute→await→store loop on the caller's thread.  On a
 single-core host depth>1 keeps the wave coalescing but also runs on the
 caller's thread, unless ``fetch_workers`` asks for pools.
+
+A stage without a row-batched update (the per-gate path,
+``gate_schedule=False``) runs strictly sequentially, one group at a time,
+through the backends' single-group hooks.
 """
 from __future__ import annotations
 
@@ -171,6 +175,35 @@ class CodecBackend:
         if not self.compression:
             return np.frombuffer(self.store.get(key), dtype=np.complex64)
         return decode_block_host(self.store.get_block(key), self.params)
+
+    # -- single-group phase hooks --------------------------------------------
+    #
+    # One group is a wave of one row: each hook is the row-batched hook
+    # below on a one-row key table, so both paths cross the boundary, count
+    # bytes and launch the codec kernels alike (one decode and one encode
+    # launch a group on the device codec).
+
+    def fetch_group(self, block_ids: np.ndarray):
+        """Worker thread: store -> host staging object for one group."""
+        return self.fetch_group_batch(np.asarray(block_ids)[None, :])
+
+    def stage_to_device(self, staged, device) -> torch.Tensor:
+        """Dispatch thread: host staging -> (2, 2^(b+m)) f32 device plane
+        stack (queued, never blocks)."""
+        return self.stage_to_device_batch(staged, device)[0]
+
+    def dispatch_result(self, planes_dev: torch.Tensor, n_blocks: int):
+        """Dispatch thread: (2, N) device planes -> in-flight ticket
+        (queued; MUST NOT block)."""
+        return self.dispatch_result_batch(planes_dev.unsqueeze(0), n_blocks)
+
+    def await_result(self, ticket):
+        """Dispatch thread: ticket -> host result object (blocks)."""
+        return self.await_result_batch(ticket)[0]
+
+    def store_group(self, block_ids: np.ndarray, result) -> None:
+        """Worker thread: host result object -> store."""
+        self.store_group_batch(np.asarray(block_ids)[None, :], [result])
 
     # -- row-batched phase hooks ---------------------------------------------
     def fetch_group_batch(self, key_rows: np.ndarray):
@@ -531,13 +564,23 @@ class StagePipeline:
         with self._t_lock:
             self.t_store += dt
 
-    def run_stage(self, block_ids: np.ndarray, wave_fn, mats) -> None:
+    def run_stage(self, block_ids: np.ndarray, fn, mats,
+                  wave_fn=None) -> None:
         """Run one stage: ``block_ids`` is the (n_groups, 2^m) layout
-        table, ``wave_fn`` the row-batched stage update ((R, 2, 2^(b+m))
-        planes -> same, updated in place) and ``mats`` its operands."""
+        table, ``fn`` the single-group stage update ((2, 2^(b+m)) planes
+        -> same) and ``mats`` its operands.
+
+        ``wave_fn`` is the row-batched form of the update ((R, 2,
+        2^(b+m)) planes -> same, updated in place): it enables the
+        wave-coalesced scheduler.  Without it (the per-gate path has no
+        batched form) the stage runs strictly sequentially through the
+        single-group hooks."""
         assert self._entered, "use StagePipeline as a context manager"
         n_groups, n_blocks = block_ids.shape
         self.n_group_phases += n_groups
+        if wave_fn is None:
+            self._run_sequential_single(block_ids, fn, mats)
+            return
         items = self._wave_items(block_ids)
         if self._dec_pool is None:
             self._run_waves(items, wave_fn, mats, n_blocks)
@@ -566,6 +609,25 @@ class StagePipeline:
             result = back.await_result_batch(ticket)
             self.t_fetch += time.perf_counter() - t0
             self._store(back.store_group_batch, keys, result)
+
+    # -- strictly sequential single-group loop (no batched stage fn) ----------
+    def _run_sequential_single(self, block_ids, fn, mats) -> None:
+        """The per-gate path: one group per call, in order, on the
+        caller's thread — load, stage, compute, dispatch, await, store."""
+        back = self.backend
+        n_groups, n_blocks = block_ids.shape
+        for g in range(n_groups):
+            keys = block_ids[g]
+            staged = self._load(back.fetch_group, keys)
+            t0 = time.perf_counter()
+            planes = back.stage_to_device(staged, self.device)
+            out = fn(planes, *mats)
+            ticket = back.dispatch_result(out, n_blocks)
+            self.t_compute += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result = back.await_result(ticket)
+            self.t_fetch += time.perf_counter() - t0
+            self._store(back.store_group, keys, result)
 
     # -- the double-buffered wave loop ---------------------------------------
     def _run_overlapped(self, items, wave_fn, mats, n_blocks) -> None:

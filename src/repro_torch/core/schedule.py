@@ -1,8 +1,8 @@
 """Stage gate schedule: transpose-minimizing compilation of a fused plan.
 
-The naive per-gate stage compute (``EngineConfig.gate_schedule=False`` in
-the JAX package; not ported yet) brackets *every* fused unitary with a
-full-group transpose pair:
+The naive per-gate stage compute (``EngineConfig.gate_schedule=False``,
+kept for the side-by-side comparison) brackets *every* fused unitary with
+a full-group transpose pair:
 
     transpose(perm_i) -> GEMM -> transpose(perm_i^-1)      # per gate i
 
@@ -31,10 +31,18 @@ planes-resident representation: a ``(2, 2^nv)`` f32 stack of re/im planes
 per row (see ``kernels/gate_apply.py``).
 
 The compiler is framework-free and identical to the JAX package's, op for
-op.  Execution is torch: :func:`execute_schedule_batched` runs every
-``GemmOp`` through the hand-written ``gemm_planes_batch`` kernel (its plain
-version on CPU tensors), ``MidGemmOp`` as ``torch.einsum``, and
-``DiagOp``/``TransposeOp`` as broadcasts and ``permute``.
+op.  Execution is torch, with the hand-written kernels of
+``kernels/gate_apply.py`` (their plain versions on CPU tensors):
+
+* :func:`execute_schedule` runs one group's (2, 2^nv) planes: every
+  ``GemmOp`` in ``gemm_planes``, a ``MidGemmOp`` with ``inner >= 128`` in
+  ``gemm_planes_mid`` (a narrower one as ``torch.einsum``), a minor-most
+  ``DiagOp`` with ``K >= 128`` in ``diag_apply`` (others as broadcasts);
+* :func:`execute_schedule_batched` runs a wave's (L, 2, 2^nv) rows: every
+  ``GemmOp`` in ``gemm_planes_batch``, ``MidGemmOp`` as ``torch.einsum``
+  and ``DiagOp`` as broadcasts.
+
+``TransposeOp`` is a ``permute`` in both.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from functools import lru_cache
 import torch
 
 __all__ = ["TransposeOp", "GemmOp", "MidGemmOp", "DiagOp", "StageSchedule",
-           "compile_schedule", "execute_schedule_batched", "gate_perm"]
+           "compile_schedule", "execute_schedule",
+           "execute_schedule_batched", "gate_perm"]
 
 
 @dataclass(frozen=True)
@@ -217,6 +226,108 @@ def compile_schedule(plan: tuple[tuple[tuple[int, ...], bool], ...],
         n_transposes += 1
     return StageSchedule(nv=nv, ops=tuple(ops), n_transposes=n_transposes,
                          n_transposes_naive=n_naive)
+
+
+def _op_mat(mat: torch.Tensor, bmap: tuple[int, ...] | None):
+    """(2, K, K) stacked U planes -> (br, bi), bit-permuted when needed."""
+    br, bi = mat[0], mat[1]
+    if bmap is not None:
+        idx = torch.as_tensor(bmap, device=mat.device)
+        br = br[idx][:, idx]
+        bi = bi[idx][:, idx]
+    return br, bi
+
+
+def execute_schedule(sched: StageSchedule, planes: torch.Tensor, mats, *,
+                     use_kernel: bool) -> torch.Tensor:
+    """Run a compiled schedule over one group's (2, 2^nv) f32 plane stack.
+
+    ``mats[i]`` is gate i's operand in plane form: ``(2, K, K)`` stacked
+    re/im of U for dense gates (each op folds its own transpose into the
+    contraction), ``(2, K)`` stacked re/im of the diagonal for diagonal
+    gates.  ``use_kernel`` selects the ``gemm_planes`` /
+    ``gemm_planes_mid`` / ``diag_apply`` kernels (under the JAX package's
+    conditions) over plain torch contractions.
+
+    The result is written back into ``planes`` (the buffer the JAX
+    package donates) and returned.
+    """
+    nv = sched.nv
+    shape = (2,) * nv
+    ar = planes[0].reshape(shape)
+    ai = planes[1].reshape(shape)
+    for op in sched.ops:
+        if isinstance(op, TransposeOp):
+            ar = ar.permute(op.perm)
+            ai = ai.permute(op.perm)
+        elif isinstance(op, GemmOp):
+            K = 1 << op.k
+            br, bi = _op_mat(mats[op.idx], op.bmap)
+            br, bi = br.T, bi.T                              # U -> U^T
+            a2r = ar.reshape(-1, K).contiguous()
+            a2i = ai.reshape(-1, K).contiguous()
+            if use_kernel:
+                from ..kernels.gate_apply import gemm_planes
+                cr, ci = gemm_planes(a2r, a2i, br, bi)
+            else:
+                cr = a2r @ br - a2i @ bi
+                ci = a2r @ bi + a2i @ br
+            ar, ai = cr.reshape(shape), ci.reshape(shape)
+        elif isinstance(op, MidGemmOp):
+            K = 1 << op.k
+            br, bi = _op_mat(mats[op.idx], op.bmap)
+            a3r = ar.reshape(op.outer, K, op.inner)
+            a3i = ai.reshape(op.outer, K, op.inner)
+            if use_kernel and op.inner >= 128:
+                # wide inner axis: one thread per inner column, coalesced
+                from ..kernels.gate_apply import gemm_planes_mid
+                cr, ci = gemm_planes_mid(a3r.contiguous(), a3i.contiguous(),
+                                         br, bi)
+            else:
+                # a narrow inner axis would leave most of a warp idle
+                def e(b, a):
+                    return torch.einsum("jk,oki->oji", b, a)
+                cr = e(br, a3r) - e(bi, a3i)
+                ci = e(br, a3i) + e(bi, a3r)
+            ar, ai = cr.reshape(shape), ci.reshape(shape)
+        else:                                   # DiagOp
+            dr, di = mats[op.idx][0], mats[op.idx][1]
+            K = 1 << op.k
+            if use_kernel and op.minor and K >= 128:
+                # full-lane diagonal: the elementwise kernel; narrower
+                # diagonals stay plain broadcasts, as in the JAX package
+                from ..kernels.gate_apply import diag_apply
+                cr, ci = diag_apply(ar.reshape(-1, K).contiguous(),
+                                    ai.reshape(-1, K).contiguous(),
+                                    dr.contiguous(), di.contiguous())
+                ar, ai = cr.reshape(shape), ci.reshape(shape)
+            elif op.block is not None:
+                # contiguous axes: reshape + clean-axis broadcast of the
+                # (bit-permuted) K-entry diagonal
+                p, dmap = op.block
+                if dmap is not None:
+                    sel = torch.as_tensor(dmap, device=dr.device)
+                    dr, di = dr[sel], di[sel]
+                if p == nv - op.k:
+                    a2r, a2i = ar.reshape(-1, K), ai.reshape(-1, K)
+                    dr, di = dr[None, :], di[None, :]
+                else:
+                    inner = 1 << (nv - p - op.k)
+                    a2r = ar.reshape(-1, K, inner)
+                    a2i = ai.reshape(-1, K, inner)
+                    dr, di = dr[None, :, None], di[None, :, None]
+                cr = a2r * dr - a2i * di
+                ci = a2r * di + a2i * dr
+                ar, ai = cr.reshape(shape), ci.reshape(shape)
+            else:
+                # scattered axes: general nv-axis broadcast
+                d2 = (2,) * op.k
+                dr = dr.reshape(d2).permute(op.dperm).reshape(op.shape)
+                di = di.reshape(d2).permute(op.dperm).reshape(op.shape)
+                ar, ai = ar * dr - ai * di, ar * di + ai * dr
+    planes[0].copy_(ar.reshape(-1))
+    planes[1].copy_(ai.reshape(-1))
+    return planes
 
 
 def _op_mat_batch(mat: torch.Tensor, bmap: tuple[int, ...] | None):

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "CSRC", "build_dir", "build", "build_all", "load",
-           "build_log"]
+           "bind", "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -106,3 +106,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _libs[name] = lib
     return lib
+
+
+def bind(name: str, signatures: dict, error_symbol: str) -> dict:
+    """The C entry points of ``csrc/<name>.cu`` (built at first use) as a
+    dict: ``signatures`` maps a key to ``(symbol, argtypes)`` of a function
+    returning a ``cudaError_t`` as int; key ``"error"`` is the library's
+    ``cudaGetErrorString``."""
+    lib = load(name)
+    fns = {}
+    for key, (symbol, argtypes) in signatures.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    err = getattr(lib, error_symbol)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    fns["error"] = err
+    return fns

@@ -5,6 +5,10 @@ on whatever device its inputs live on.  The kernel wrappers run these for
 CPU tensors (the test suite's path), and ``chip_smoke.py`` holds every
 kernel against its plain version on the card.
 
+The gate functions mirror ``repro/kernels/ref.py`` and the Pallas bodies
+of ``repro/kernels/gate_apply.py``: complex products on separate re/im
+f32 planes, written as four real products.
+
 The codec functions mirror ``repro/kernels/ref.py`` and the Pallas kernel
 bodies of ``repro/kernels/quantize.py`` and ``repro/kernels/pack.py`` in
 f32 (int32 codes, ``torch.round`` half to even).  Codes that cross the
@@ -15,14 +19,24 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gemm_planes_batch_ref", "quantize_tiles_ref",
-           "dequantize_tiles_ref", "pack_codes_tiles_ref",
-           "unpack_codes_tiles_ref", "encode_planes_ref",
-           "decode_planes_ref", "tile_rows_for"]
+__all__ = ["gemm_planes_ref", "gemm_planes_batch_ref", "gemm_planes_mid_ref",
+           "diag_apply_ref", "quantize_tiles_ref", "dequantize_tiles_ref",
+           "pack_codes_tiles_ref", "unpack_codes_tiles_ref",
+           "pack_bitmap_tiles_ref", "unpack_bitmap_tiles_ref",
+           "encode_planes_ref", "decode_planes_ref", "tile_rows_for"]
 
 CODE_MAX = 65535
 _LANES = 128
 _WORDS = _LANES // 32
+
+
+def gemm_planes_ref(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
+                    bi: torch.Tensor):
+    """(R, K) x (K, K) complex GEMM on re/im planes with one B = U^T for
+    every row: ``Cr = Ar·Br − Ai·Bi``, ``Ci = Ar·Bi + Ai·Br``."""
+    cr = ar @ br - ai @ bi
+    ci = ar @ bi + ai @ br
+    return cr.to(torch.float32), ci.to(torch.float32)
 
 
 def gemm_planes_batch_ref(ar: torch.Tensor, ai: torch.Tensor,
@@ -31,6 +45,26 @@ def gemm_planes_batch_ref(ar: torch.Tensor, ai: torch.Tensor,
     ``Cr = Ar·Br − Ai·Bi``, ``Ci = Ar·Bi + Ai·Br`` (four real products)."""
     cr = ar @ br - ai @ bi
     ci = ar @ bi + ai @ br
+    return cr.to(torch.float32), ci.to(torch.float32)
+
+
+def gemm_planes_mid_ref(ar: torch.Tensor, ai: torch.Tensor,
+                        br: torch.Tensor, bi: torch.Tensor):
+    """(O, K, I) batched left contraction ``C[o] = U·A[o]`` on re/im planes;
+    ``br``/``bi`` are U's planes, not transposed."""
+    cr = br @ ar - bi @ ai
+    ci = br @ ai + bi @ ar
+    return cr.to(torch.float32), ci.to(torch.float32)
+
+
+def diag_apply_ref(ar: torch.Tensor, ai: torch.Tensor, dr: torch.Tensor,
+                   di: torch.Tensor):
+    """(R, K) planes times the complex diagonal ``dr + i·di`` ((K,) or
+    (1, K)), broadcast over the rows."""
+    dr = dr.reshape(1, -1)
+    di = di.reshape(1, -1)
+    cr = ar * dr - ai * di
+    ci = ar * di + ai * dr
     return cr.to(torch.float32), ci.to(torch.float32)
 
 
@@ -126,6 +160,19 @@ def unpack_codes_tiles_ref(packed: torch.Tensor) -> torch.Tensor:
     lo = w & 0xFFFF
     hi = (w >> 16) & 0xFFFF
     return torch.stack([lo, hi], dim=-1).reshape(w.shape[0], _LANES)
+
+
+def pack_bitmap_tiles_ref(bits: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) bits (bool, or int32 where nonzero counts as set) ->
+    (rows, 4) int32 ballot words, bit i of word w = lane 32w + i."""
+    rows = bits.shape[0]
+    return _pack_bits((bits != 0).reshape(rows, _WORDS, 32))
+
+
+def unpack_bitmap_tiles_ref(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_bitmap_tiles_ref`: (rows, 4) int32 words ->
+    (rows, 128) int32 bits in {0, 1}."""
+    return _unpack_bits(packed).to(torch.int32)
 
 
 # -- the fused wave versions ------------------------------------------------

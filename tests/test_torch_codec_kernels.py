@@ -268,9 +268,12 @@ def test_cuda_kernels_match_their_plain_versions(n):
                                   torch.empty_like(stack), n)
     torch.testing.assert_close(out_k, out_r, rtol=1e-6, atol=0)
     assert tcodec.launch_counts == {"encode": 1, "decode": 1}
-    with pytest.raises(NotImplementedError, match="fused"):
-        tpack.pack_codes_tiles(torch.zeros((1, 128), dtype=torch.int32,
-                                           device=dev))
+    # the standalone code packers launch their own kernels (csrc/pack.cu)
+    flat = (ck.to(torch.int32) & 0xFFFF).reshape(-1)
+    codes = flat[:flat.numel() // 128 * 128].reshape(-1, 128)
+    words = tpack.pack_codes_tiles(codes)
+    assert torch.equal(words, ref.pack_codes_tiles_ref(codes))
+    assert torch.equal(tpack.unpack_codes_tiles(words), codes)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """Guards of the port: it imports neither JAX nor the JAX package, nothing
-falls back silently (no GPU, batched runs, several devices, the per-gate
-path), and the interop helpers carry circuits and arrays across."""
+falls back silently (no GPU, batched runs, several devices), and the
+interop helpers carry circuits and arrays across."""
 import ast
 import os
 import shutil
@@ -63,7 +63,6 @@ def test_batched_runs_raise_until_ported():
 @pytest.mark.parametrize("kw,item", [
     ({"mesh_shape": 2}, "A10"),
     ({"devices": [CPU, CPU]}, "A10"),
-    ({"devices": [CPU], "gate_schedule": False}, "A9"),
 ])
 def test_unported_placements_and_paths_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
