@@ -74,6 +74,7 @@ from ..compression.device_codec import (PlaneWire, decode_wave, encode_wave,
 from ..compression.pwrel import PwRelParams
 from ..compression.store import BlockStore
 from ..errors import BlockCorruptionError, StoreIOError
+from .devices import resolve_device
 from .faults import fault_point
 
 __all__ = ["CodecBackend", "HostCodecBackend", "DeviceCodecBackend",
@@ -486,7 +487,7 @@ class StagePipeline:
                  fetch_workers: int | None = None):
         self.backend = backend
         self.depth = max(1, depth)
-        self.device = torch.device("cpu") if device is None else device
+        self.device = resolve_device(device)
         # fetch pool width.  None = adaptive: one worker per spare core,
         # capped at the lookahead — and NO pools on a single-core host.
         # An explicit >= 1 forces the threaded overlap scheduler; an

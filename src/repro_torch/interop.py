@@ -1,12 +1,13 @@
-"""Carry circuits, states and operands across from the JAX package.
+"""Carry circuits, states, operands and LM trees across from the JAX package.
 
-The port has no trained weights: what crosses packages is the circuit, the
-state (or its re/im planes) and the gate operands.  This module takes them
-as plain numpy arrays and tuples — it never imports the JAX package — so a
-caller holding a ``repro`` object flattens it first, e.g.::
+What crosses packages is the circuit, the state (or its re/im planes), the
+gate operands, and an LM's parameter and cache trees.  This module takes
+them as plain numpy arrays and tuples — it never imports the JAX package —
+so a caller holding a ``repro`` object flattens it first, e.g.::
 
     gates = [(g.name, g.qubits, g.matrix, g.params) for g in rc.gates]
     tc = circuit_from_gates(rc.n_qubits, gates)
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams))
 
 A :class:`~repro_torch.core.circuit.Parameter` placeholder is passed as
 ``("param", name)``, so the tuples stay free of either package's types.
@@ -21,7 +22,8 @@ import torch
 from .core.circuit import Circuit, Gate, Parameter
 from .core.devices import resolve_device
 
-__all__ = ["circuit_from_gates", "to_device"]
+__all__ = ["circuit_from_gates", "to_device", "lm_params_from_numpy",
+           "lm_cache_from_numpy"]
 
 
 def _param(p):
@@ -59,3 +61,41 @@ def to_device(arrays, device=None, dtype: torch.dtype | None = None):
         return type(arrays)(to_device(a, dev, dtype) for a in arrays)
     t = torch.from_numpy(np.ascontiguousarray(arrays))
     return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    """One numpy leaf -> a tensor of the same dtype on ``dev`` (a copy).
+
+    bfloat16 leaves are ``ml_dtypes`` arrays, which is what ``np.asarray``
+    of a JAX bfloat16 array gives; they are recognised by the dtype's name
+    (``ml_dtypes`` is not imported) and carried bit for bit.
+    """
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def _tree_from_numpy(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_numpy(v, dev) for v in tree)
+    return _leaf_from_numpy(tree, dev)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The JAX package's LM parameter tree (``repro.models.transformer.
+    init_params``), its leaves already numpy arrays, as the port's tree of
+    tensors on ``device`` (default ``cuda:0``): the same dicts, lists and
+    tuples, dtypes kept (bf16 weights, f32 norms)."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_cache_from_numpy(tree, device=None):
+    """The JAX package's decode cache (raw bf16 k/v, or the compressed
+    uint8 codes and signs with f32 scales), its leaves already numpy
+    arrays, as the port's tree of writable tensors on ``device`` (default
+    ``cuda:0``), dtypes kept."""
+    return _tree_from_numpy(tree, resolve_device(device))

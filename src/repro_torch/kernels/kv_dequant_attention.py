@@ -1,0 +1,174 @@
+"""One decode step's attention reading a pwrel-compressed KV cache.
+
+The port of the TPU kernel ``repro/kernels/kv_dequant_attention.py::
+kv_dequant_decode_attention``: the cache holds uint8 log-codes (0 = exact
+zero), LSB-first packed sign bytes and a per-(token, head) f32 log2
+scale; the kernel dequantizes in registers as ``|x| = exp2(scale -
+(255 - c)·KV_STEP)`` and attends with the causal length mask j <= pos.
+
+* ``kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
+  signs_v, scale_v, pos)`` — the TPU signature: q (BG, rep, hd); codes
+  (BG, T, hd) u8; signs (BG, T, hd/8) u8; scale (BG, T, 1) f32 ->
+  (BG, rep, hd) f32;
+* ``kv_dequant_decode_attention_gqa(...)`` — the same kernel in the serving
+  layout: q (B, 1, Hq, hd); one layer's cache leaves (B, T, G, hd),
+  (B, T, G, hd/8), (B, T, G, 1), typically views of the stacked
+  (U, B, T, G, ·) cache, read in place -> (B, 1, Hq, hd) f32: the attention
+  core of ``serving.kvcache.compressed_attention_decode``.
+
+``pos`` is a host int (no device sync).  q may be float32 or bfloat16.  On
+a CUDA tensor both launch the hand-written Hopper kernel in
+``csrc/attention.cu`` (see the note there for what bounds it); on a CPU
+tensor they run the plain versions in :mod:`.ref`.  Any other device
+raises — there is no fallback from the kernel.  :data:`launch_counts`
+counts CUDA launches (one per call).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .codec import _cuda_device
+from .flash_attention import HEAD_DIMS
+from .ref import (KV_RANGE, KV_STEP, kv_dequant_decode_attention_gqa_ref,
+                  kv_dequant_decode_attention_ref)
+
+__all__ = ["kv_dequant_decode_attention", "kv_dequant_decode_attention_gqa",
+           "KV_RANGE", "KV_STEP", "CHUNK", "launch_counts",
+           "reset_launch_counts"]
+
+#: cached tokens one block of the kernel attends over (its T split)
+CHUNK = 256
+
+#: kernel name -> launches since the last reset
+launch_counts: dict[str, int] = {"kv_dequant_decode_attention": 0}
+
+_fns = None    # C entry points, bound at first CUDA call
+
+
+def reset_launch_counts() -> None:
+    launch_counts["kv_dequant_decode_attention"] = 0
+
+
+def _kernels() -> dict:
+    global _fns
+    if _fns is None:
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        st = ctypes.POINTER(ctypes.c_longlong)
+        _fns = build.bind("attention", {
+            "kv_dequant_decode_attention": (
+                "kv_dequant_decode_attention_fwd",
+                [p, st] + [p, st] * 6 + [p, p, p] + [i32] * 8 + [p]),
+        }, "attention_cuda_error_string")
+    return _fns
+
+
+def _strides(t: torch.Tensor):
+    """(batch, head, sequence) element strides of a 4-D operand."""
+    return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+
+def _launch(q: torch.Tensor, cache: tuple, pos: int,
+            dev: torch.device) -> torch.Tensor:
+    """q (B, G, rep, hd); cache leaves (B, G, T, ·) -> (B, G, rep, hd) f32."""
+    B, G, rep, hd = q.shape
+    T = cache[0].shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"kv_dequant_decode_attention: hd={hd} not in "
+                         f"{HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kv_dequant_decode_attention: q is {q.dtype}")
+    for t, dt in zip(cache, (torch.uint8, torch.uint8, torch.float32) * 2):
+        if t.dtype != dt or t.stride(3) != 1:
+            raise ValueError(f"kv_dequant_decode_attention: want {dt} cache "
+                             f"leaves with a contiguous last axis, got "
+                             f"{t.dtype} with strides {t.stride()}")
+    for leaf, align in zip(cache, (16, 2, 1, 16, 2, 1)):
+        if leaf.data_ptr() % align or any(s % align
+                                          for s in leaf.stride()[:3]):
+            raise ValueError(f"kv_dequant_decode_attention: the kernel reads "
+                             f"{leaf.dtype} rows {align}-byte aligned, got "
+                             f"strides {leaf.stride()}")
+    if q.stride(3) != 1:
+        raise ValueError("kv_dequant_decode_attention: q's head axis must "
+                         "be contiguous")
+    n_split = -(-min(T, pos + 1) // CHUNK)
+    out = torch.empty((B, G, rep, hd), dtype=torch.float32, device=dev)
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty((B * G, n_split, rep, hd), dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty((B * G, n_split, rep, 2), dtype=torch.float32,
+                              device=dev)
+    args = []
+    for t in cache:
+        args += [t.data_ptr(), _strides(t)]
+    fns = _kernels()
+    with torch.cuda.device(dev):
+        rc = fns["kv_dequant_decode_attention"](
+            q.data_ptr(), _strides(q), *args, out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), B, G, rep, hd,
+            T, pos, n_split, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kv_dequant_decode_attention kernel launch "
+                           f"failed: {fns['error'](rc).decode()} "
+                           f"(cudaError {rc})")
+    launch_counts["kv_dequant_decode_attention"] += 1
+    return out
+
+
+def _check_pos(pos) -> int:
+    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
+        raise ValueError(f"kv_dequant_decode_attention: pos must be a host "
+                         f"int >= 0, got {pos!r}")
+    return int(pos)
+
+
+def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
+                                signs_v, scale_v, pos) -> torch.Tensor:
+    """q (BG, rep, hd); cache leaves (BG, T, ·) -> (BG, rep, hd) f32.
+
+    ``pos``: the last valid cache index (causal mask j <= pos).
+    """
+    pos = _check_pos(pos)
+    cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
+    BG, rep, hd = q.shape
+    T = codes_k.shape[1]
+    want = ((BG, T, hd), (BG, T, hd // 8), (BG, T, 1)) * 2
+    if hd % 8 or tuple(tuple(t.shape) for t in cache) != want:
+        raise ValueError(f"kv_dequant_decode_attention: q {tuple(q.shape)} "
+                         f"and cache {[tuple(t.shape) for t in cache]} do "
+                         f"not form (BG, rep, hd) x (BG, T, hd | hd/8 | 1)")
+    dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention")
+    if dev is None:
+        return kv_dequant_decode_attention_ref(q, *cache, pos)
+    return _launch(q.unsqueeze(1), tuple(t.unsqueeze(1) for t in cache),
+                   pos, dev)[:, 0]
+
+
+def kv_dequant_decode_attention_gqa(q, codes_k, signs_k, scale_k, codes_v,
+                                    signs_v, scale_v, pos) -> torch.Tensor:
+    """q (B, 1, Hq, hd); one layer's cache leaves (B, T, G, ·) ->
+    (B, 1, Hq, hd) f32, query head h attending with kv head h // (Hq / G).
+    """
+    pos = _check_pos(pos)
+    cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
+    B, one, Hq, hd = q.shape
+    T, G = codes_k.shape[1], codes_k.shape[2]
+    want = ((B, T, G, hd), (B, T, G, hd // 8), (B, T, G, 1)) * 2
+    if (one != 1 or hd % 8 or Hq % G
+            or tuple(tuple(t.shape) for t in cache) != want):
+        raise ValueError(f"kv_dequant_decode_attention_gqa: q "
+                         f"{tuple(q.shape)} and cache "
+                         f"{[tuple(t.shape) for t in cache]} do not form "
+                         "(B, 1, Hq, hd) x (B, T, G, hd | hd/8 | 1), G | Hq")
+    dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention_gqa")
+    if dev is None:
+        return kv_dequant_decode_attention_gqa_ref(q, *cache, pos)
+    out = _launch(q[:, 0].unflatten(1, (G, Hq // G)),
+                  tuple(t.transpose(1, 2) for t in cache), pos, dev)
+    return out.reshape(B, 1, Hq, hd)

@@ -9,6 +9,13 @@ The gate functions mirror ``repro/kernels/ref.py`` and the Pallas bodies
 of ``repro/kernels/gate_apply.py``: complex products on separate re/im
 f32 planes, written as four real products.
 
+The attention functions mirror the Pallas bodies of
+``repro/kernels/flash_attention.py`` and
+``repro/kernels/kv_dequant_attention.py`` (and ``tests/test_kernels_flash.py``'s
+oracle): f32 scores scaled by hd^-0.5, masked to -2^30, softmax, P·V, all
+in f32.  Their ``*_gqa_ref`` forms take the model's layout and broadcast
+one kv head over its ``rep`` query heads without copying it.
+
 The codec functions mirror ``repro/kernels/ref.py`` and the Pallas kernel
 bodies of ``repro/kernels/quantize.py`` and ``repro/kernels/pack.py`` in
 f32 (int32 codes, ``torch.round`` half to even).  Codes that cross the
@@ -23,7 +30,11 @@ __all__ = ["gemm_planes_ref", "gemm_planes_batch_ref", "gemm_planes_mid_ref",
            "diag_apply_ref", "quantize_tiles_ref", "dequantize_tiles_ref",
            "pack_codes_tiles_ref", "unpack_codes_tiles_ref",
            "pack_bitmap_tiles_ref", "unpack_bitmap_tiles_ref",
-           "encode_planes_ref", "decode_planes_ref", "tile_rows_for"]
+           "encode_planes_ref", "decode_planes_ref", "tile_rows_for",
+           "flash_attention_ref", "flash_attention_gqa_ref",
+           "kv_dequant_ref", "kv_dequant_decode_attention_ref",
+           "kv_dequant_decode_attention_gqa_ref", "NEG_INF", "KV_RANGE",
+           "KV_STEP", "KV_CODE_MAX"]
 
 CODE_MAX = 65535
 _LANES = 128
@@ -241,3 +252,84 @@ def decode_planes_ref(codes: torch.Tensor, signs: torch.Tensor,
     nb = blocks.shape[2]
     blocks[blk // nb, comp, blk % nb] = vals
     return out
+
+
+# -- attention (B10, B11) ------------------------------------------------------
+
+NEG_INF = -2.0 ** 30           # the TPU kernels' mask (avoids inf - inf)
+KV_RANGE = 16.0                # log2 units below the per-(token, head) max
+KV_STEP = KV_RANGE / 254.0
+KV_CODE_MAX = 255
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor | None) -> torch.Tensor:
+    """f32 softmax attention over the last two axes; leading axes
+    broadcast, so a (..., 1, T, hd) k serves (..., rep, S, hd) queries."""
+    s = torch.einsum("...sd,...td->...st", q, k) * (q.shape[-1] ** -0.5)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    return torch.einsum("...st,...td->...sd", torch.softmax(s, dim=-1), v)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q/k/v (..., S, hd) -> (..., S, hd) f32, masked to j <= i when
+    ``causal`` (``tests/test_kernels_flash.py``'s oracle)."""
+    S = q.shape[-2]
+    mask = (torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    return _attend(q.float(), k.float(), v.float(), mask)
+
+
+def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True
+                            ) -> torch.Tensor:
+    """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype;
+    query head h = g·rep + r reads kv head g."""
+    B, S, Hq, hd = q.shape
+    G = k.shape[2]
+    qh = q.permute(0, 2, 1, 3).reshape(B, G, Hq // G, S, hd)
+    kh = k.permute(0, 2, 1, 3).unsqueeze(2)               # (B, G, 1, S, hd)
+    vh = v.permute(0, 2, 1, 3).unsqueeze(2)
+    out = flash_attention_ref(qh, kh, vh, causal)          # (B, G, rep, S, hd)
+    return out.reshape(B, Hq, S, hd).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def kv_dequant_ref(codes: torch.Tensor, signs: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """codes (..., hd) u8 + signs (..., hd/8) u8 + scale (..., 1) f32 ->
+    f32 (..., hd): ``_dequant`` of the TPU kernel, sign bit i of byte j
+    belonging to element 8j + i."""
+    step = torch.full((), KV_STEP, dtype=torch.float32, device=codes.device)
+    d = KV_CODE_MAX - codes.to(torch.float32)
+    mag = torch.exp2(scale - d * step)
+    mag = torch.where(codes == 0, torch.zeros_like(mag), mag)
+    shifts = torch.arange(8, dtype=torch.uint8, device=codes.device)
+    bits = (signs.unsqueeze(-1) >> shifts) & 1
+    neg = bits.reshape(codes.shape) == 1
+    return torch.where(neg, -mag, mag)
+
+
+def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
+                                    signs_v, scale_v, pos) -> torch.Tensor:
+    """q (..., rep, hd); cache leaves (..., T, ·) -> (..., rep, hd) f32,
+    attending to cache slots j <= pos."""
+    k = kv_dequant_ref(codes_k, signs_k, scale_k)
+    v = kv_dequant_ref(codes_v, signs_v, scale_v)
+    T = codes_k.shape[-2]
+    mask = torch.arange(T, device=q.device) <= int(pos)
+    return _attend(q.float(), k, v, mask)
+
+
+def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
+                                        codes_v, signs_v, scale_v, pos
+                                        ) -> torch.Tensor:
+    """q (B, 1, Hq, hd); cache leaves (B, T, G, ·) -> (B, 1, Hq, hd) f32."""
+    B, _, Hq, hd = q.shape
+    G = codes_k.shape[2]
+    qh = q[:, 0].reshape(B, G, Hq // G, hd)
+    cache = [t.transpose(1, 2) for t in (codes_k, signs_k, scale_k, codes_v,
+                                         signs_v, scale_v)]
+    out = kv_dequant_decode_attention_ref(qh, *cache, pos)
+    return out.reshape(B, 1, Hq, hd)

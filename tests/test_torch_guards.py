@@ -83,6 +83,18 @@ def test_missing_gpu_raises_unless_the_cpu_was_asked_for(monkeypatch):
     assert abs(abs(state[0]) ** 2 - 0.5) < 1e-3
 
 
+def test_stage_pipeline_defaults_to_the_card(monkeypatch):
+    from repro_torch.compression import BlockStore, PwRelParams
+    from repro_torch.core import HostCodecBackend, StagePipeline
+    backend = HostCodecBackend(BlockStore(), PwRelParams(1e-3), 1 << 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StagePipeline(backend)
+    assert StagePipeline(backend, device=CPU).device == CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert StagePipeline(backend).device == torch.device("cuda", 0)
+
+
 @pytest.mark.cuda
 def test_cuda_run_goes_through_the_kernel_and_matches_the_cpu_run():
     if not torch.cuda.is_available():
