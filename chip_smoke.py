@@ -6,26 +6,39 @@ Phases, in order (any failure exits non-zero and prints no result):
 
 1. build        — compile every CUDA source under src/repro_torch/csrc/,
                   one nvcc per source, all started together; time the
-                  build.
+                  build.  For each tensor-core kernel instantiation
+                  (gemm_planes_tc_kernel, flash_bf16_kernel,
+                  flash_f32_kernel) print its ptxas registers and spills
+                  (kernel_ptxas) and its HMMA/HGMMA count in the SASS of
+                  the built library (kernel_sass, cuobjdump -sass); a count
+                  of 0 fails.
 2. kernels      — hold each kernel against its plain PyTorch version on the
                   card, at the main paths' shapes and at small (for the
                   codec: ragged) shapes, and time kernel, plain version and
                   (where one exists) one library call beside the kernel's
-                  bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s
-                  f32, whichever is larger): gemm_planes_batch, the codec's
-                  encode/decode, gemm_planes, gemm_planes_mid, diag_apply
-                  (within 1e-4 on unit-scale inputs) and the packing
-                  kernels (bit for bit).
+                  bound (bytes over 3.35 TB/s or operations over the peak
+                  rate of the kernel's arithmetic, whichever is larger: 67
+                  TFLOP/s f32 FMAs, 495 TFLOP/s TF32 with split TF32 as
+                  three products, 989 TFLOP/s bf16; timed rows also give
+                  the f32-FMA bound): gemm_planes_batch, the codec's
+                  encode/decode, gemm_planes (K = 4 ... 128; split TF32 on
+                  the tensor cores for K >= 64), gemm_planes_mid,
+                  diag_apply (within 1e-4 on unit-scale inputs) and the
+                  packing kernels (bit for bit).
                   Then the attention kernels (within 2e-4 of their plain
                   versions on f32 inputs, as the Pallas tests hold them):
                   flash_attention at the TPU tests' shapes, causal and
                   full, at a ragged S and in the model's GQA layout
-                  (bf16: within one bf16 rounding); kv_dequant_decode_
-                  attention at the TPU tests' shapes, a ragged T, pos 0,
-                  a mask that crosses pos inside a block, rep 48 (MQA) and
-                  the serving layout as views of a stacked cache; timed at
-                  (BH, S, hd) = (128, 2048, 128) causal f32 (library:
-                  F.scaled_dot_product_attention) and at the serve shape.
+                  (bf16: within 2^-8 max|v| + one bf16 step of the plain
+                  version, which rounds P to bf16 as repro does);
+                  kv_dequant_decode_attention at the TPU tests' shapes, a
+                  ragged T, pos 0, a mask that crosses pos inside a block,
+                  rep 48 (MQA) and the serving layout as views of a stacked
+                  cache; timed at (BH, S, hd) = (128, 2048, 128) causal f32
+                  and in bf16 at the serve shape (B 8, S 2,048, Hq 32, G 8;
+                  library: F.scaled_dot_product_attention, f32 with TF32
+                  off, bf16 on expanded kv heads), B11 at the serve
+                  shape.
 3. ops          — the kernels/ops.py entry points on one group plane of
                   2^22 amplitudes: quantize_block -> pack_codes ->
                   unpack_codes -> dequantize_block and pack_sign_bitmap ->
@@ -37,7 +50,11 @@ Phases, in order (any failure exits non-zero and prints no result):
                   with one lane, within 1e-5 relative 2-norm, and one
                   synthetic schedule with a minor-most k = 7 diagonal:
                   gemm_planes and gemm_planes_mid must launch, and
-                  diag_apply exactly once for the synthetic op.
+                  diag_apply exactly once for the synthetic op.  Then the
+                  same for qft-26's schedules at max_fused_qubits=7, whose
+                  dense fused gates of K = 128 run on gemm_planes'
+                  tensor-core kernel (it must launch at least once per
+                  such GemmOp).
 5. main         — repro_torch.Simulator(build_circuit("qft", 26),
                   EngineConfig()).run() on cuda:0 (host codec, default
                   planning).
@@ -94,6 +111,9 @@ FIDELITY_MIN = 0.99
 RTOL, ATOL = 1e-5, 1e-6          # f32 summation order differs from cuBLAS
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM tensor cores, dense TF32
+BF16_FLOP_PER_S = 989e12         # H100 SXM tensor cores, dense bf16
+SPLIT_TF32 = 3                   # split TF32: three TF32 products a product
 HOST_AHEAD_CYCLES = 100_000_000  # ~50 ms of card clock: the host's queue time
 COLD_BYTES = 128 << 20           # inputs cycled per timing, > 2x the L2
 # the codec kernels against their plain versions (ROADMAP "The pwrel
@@ -166,12 +186,86 @@ def cold_copies(args: tuple, big: tuple[int, ...]) -> list[tuple]:
     return copies
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, rate: float = F32_FLOP_PER_S
+          ) -> tuple[float, str]:
     """The least time the card could take: bytes over its memory rate or
-    f32 operations over its peak rate, whichever is larger."""
+    operations over the peak ``rate`` of the arithmetic that does them
+    (default f32 FMAs on the CUDA cores; split TF32 passes
+    SPLIT_TF32 * ops at TF32_FLOP_PER_S, bf16 BF16_FLOP_PER_S), whichever
+    is larger."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_FLOP_PER_S * 1e3
+    to = ops / rate * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def bounds(nbytes: int, flops: int, ops: int, rate: float) -> dict:
+    """A timed row's bound under the kernel's own arithmetic (``ops`` at
+    ``rate``: what ``bound_ms`` reports) beside the bound as f32 FMAs on
+    the CUDA cores (``flops`` at F32_FLOP_PER_S)."""
+    b, by = bound(nbytes, ops, rate)
+    bf, bfy = bound(nbytes, flops)
+    return {"bound_ms": b, "bound_by": by, "bound_f32_fma_ms": bf,
+            "bound_f32_fma_by": bfy, "bytes": nbytes, "flops": flops}
+
+
+# -- phase 1: the tensor-core kernels, shown in the built code ----------------
+
+#: source -> symbols of the kernels that must run on the tensor cores
+TENSOR_CORE_KERNELS = {
+    "gate_apply": ("gemm_planes_tc_kernel",),
+    "attention": ("flash_bf16_kernel", "flash_f32_kernel"),
+}
+
+
+def ptxas_lines(text: str) -> dict[str, list[str]]:
+    """``nvcc -Xptxas -v`` output by entry function: its register and
+    spill lines."""
+    out: dict[str, list[str]] = {}
+    fn = None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+            out.setdefault(fn, [])
+        elif fn and ("registers" in ln or "spill" in ln):
+            out[fn].append(" ".join(ln.replace("ptxas info    :", "")
+                                    .split()))
+    return out
+
+
+def tensor_core_check(build, log) -> None:
+    """For each redesigned kernel instantiation: its ``ptxas -v`` registers
+    and spills, and the number of HMMA / HGMMA instructions in its SASS
+    (``cuobjdump -sass`` of the built library); 0 fails the smoke."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name, symbols in TENSOR_CORE_KERNELS.items():
+        for fn, lines in ptxas_lines(log[name][1]).items():
+            if any(sym in fn for sym in symbols):
+                print(f"kernel_ptxas {fn} " + " | ".join(lines), flush=True)
+        lib = build._target(name)[1]
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass {lib.name} failed: {out.stderr.strip()}")
+        counts: dict[str, int] = {}
+        fn = None
+        for ln in out.stdout.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[1].strip()
+                if any(sym in fn for sym in symbols):
+                    counts[fn] = 0
+                else:
+                    fn = None
+            elif fn and ("HMMA" in ln or "HGMMA" in ln):
+                counts[fn] += 1
+        if not counts:
+            fail(f"no {symbols} in the SASS of {lib.name}")
+        for fn, n in counts.items():
+            print(f"kernel_sass {fn} hmma={n}", flush=True)
+            if n <= 0:
+                fail(f"{fn} has no HMMA/HGMMA instruction: it does not run "
+                     "on the tensor cores")
 
 
 # -- phase 2: gemm_planes_batch against its plain version ---------------------
@@ -406,12 +500,15 @@ def unit_planes(shape, seed: int):
 
 
 def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
-               ops: int, library=None, **shape) -> dict:
+               ops: int, library=None, split_tf32: bool = False,
+               **shape) -> dict:
     """One call of a gate kernel against its plain version on the same
     inputs (max abs error <= GATE_ATOL); with ``timed``, kernel / plain /
     library times beside the bound, over cold copies of the ``big``
     inputs (``library`` maps an argument tuple to the library call's
-    arguments: one PyTorch call, ``torch.matmul`` or a multiply)."""
+    arguments: one PyTorch call, ``torch.matmul`` or a multiply).
+    ``split_tf32``: the kernel's products run as split TF32 on the tensor
+    cores, so its own bound counts three TF32 products a product."""
     import torch
     cr, ci = fn(*args)
     rr, ri = ref_fn(*args)
@@ -419,13 +516,15 @@ def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
     err = max(float((cr - rr).abs().max()), float((ci - ri).abs().max()))
     out = {**shape, "max_abs_err": err, "ok": err <= GATE_ATOL}
     if timed:
-        b, by = bound(nbytes, ops)
         inputs = cold_copies(args, big)
         lib_fn, lib_args = library
         out.update(ms=cuda_ms(fn, inputs),
                    plain_ms=cuda_ms(ref_fn, inputs),
                    library_ms=cuda_ms(lib_fn, [lib_args(a) for a in inputs]),
-                   bound_ms=b, bound_by=by, bytes=nbytes, flops=ops)
+                   **(bounds(nbytes, ops, SPLIT_TF32 * ops, TF32_FLOP_PER_S)
+                      if split_tf32 else bounds(nbytes, ops, ops,
+                                                F32_FLOP_PER_S)))
+        out["arithmetic"] = "split TF32" if split_tf32 else "f32 FMA"
     print(f"kernel_check {name} " + json.dumps(out), flush=True)
     if not out["ok"]:
         fail(f"{name} disagrees with its plain version at {shape}: max abs "
@@ -446,7 +545,7 @@ def gemm_planes_case(R: int, K: int, seed: int, timed: bool) -> dict:
         (ar, ai, br, bi), (0, 1), timed, 4 * (4 * R * K + 2 * K * K),
         8 * R * K * K, (torch.matmul, lambda a: (torch.complex(a[0], a[1]),
                                                   torch.complex(a[2], a[3]))),
-        R=R, K=K)
+        split_tf32=K >= 64, R=R, K=K)
 
 
 def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
@@ -482,13 +581,15 @@ def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
 
 
 def gate_phase() -> dict:
-    """B6 at R*K = 2^22 (K = 4, 16, 32, 128: the per-gate and schedule
-    shapes), B7 at the schedules' (O, K, I), B8 at K = 4, 32, 128; then
-    small and odd shapes untimed."""
+    """B6 at R*K = 2^22 (K = 4, 16, 32: the per-gate and schedule shapes
+    at the default fusion width; 64, 128: max_fused_qubits 6 and 7, on the
+    split-TF32 tensor-core kernel), B7 at the schedules' (O, K, I), B8 at
+    K = 4, 32, 128; then small, odd and ragged shapes untimed."""
     b6 = [gemm_planes_case(GROUP // K, K, seed=10 + K, timed=True)
-          for K in (4, 16, 32, 128)]
+          for K in (4, 16, 32, 64, 128)]
     b6 += [gemm_planes_case(R, K, seed=20 + i, timed=False)
-           for i, (R, K) in enumerate([(7, 2), (33, 8), (5, 64), (3, 128)])]
+           for i, (R, K) in enumerate([(7, 2), (33, 8), (5, 64), (3, 128),
+                                       (1000, 128), (77, 64), (4097, 64)])]
     b7 = [gemm_planes_mid_case(1, 4, 1 << 20, seed=30, timed=True),
           gemm_planes_mid_case(1, 32, 1 << 17, seed=31, timed=True)]
     b7 += [gemm_planes_mid_case(O, K, I, seed=40 + i, timed=False)
@@ -575,7 +676,7 @@ def attn_check(name: str, got, want, shape: dict, atol: float = ATTN_ATOL,
                rtol: float = 0.0) -> dict:
     """max |got - want| within ``atol + rtol*max(|got|, |want|)``, as one
     case (``rtol`` for outputs rounded to bf16 on both sides, which may
-    land one bf16 step apart)."""
+    land one bf16 step apart; see :func:`bf16_atol`)."""
     import torch
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
@@ -585,7 +686,7 @@ def attn_check(name: str, got, want, shape: dict, atol: float = ATTN_ATOL,
               .all())
     out = {**shape, "max_abs_err": err, "ok": ok}
     if rtol:
-        out["rtol"] = rtol
+        out.update(rtol=rtol, atol=atol)
     print(f"kernel_check {name} " + json.dumps(out), flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version at {shape}: max abs "
@@ -621,11 +722,22 @@ def flash_gqa_cases(B: int, S: int, Hq: int, G: int, hd: int,
         q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:]
         shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd,
                  "dtype": str(dt).split(".")[-1], "causal": True}
+        bf = dt == torch.bfloat16
         out.append(attn_check(
             "flash_attention", fa.flash_attention_gqa(q, k, v),
             ref.flash_attention_gqa_ref(q, k, v), shape,
-            rtol=BF16_RTOL if dt == torch.bfloat16 else 0.0))
+            atol=bf16_atol(v) if bf else ATTN_ATOL,
+            rtol=BF16_RTOL if bf else 0.0))
     return out
+
+
+def bf16_atol(v) -> float:
+    """The absolute half of the bf16 check, 2^-8 max|v|: the kernel rounds
+    unnormalised probabilities to bf16 and the plain version normalised
+    ones, each within 2^-9 relative of the exact p, so the two P·V differ
+    by at most 2^-8 max|v| (the probabilities sum to 1); the outputs then
+    round to bf16 up to one step (BF16_RTOL) apart."""
+    return 2.0 ** -8 * float(v.float().abs().max())
 
 
 def kv_cache_case(lead: tuple, T: int, hd: int, seed: int):
@@ -684,7 +796,8 @@ def kvdq_serving_cases(U: int, B: int, T: int, G: int, rep: int, hd: int,
 def flash_timed(BH: int, S: int, hd: int) -> dict:
     """B10 at (BH, S, hd) causal f32: kernel, plain version and
     F.scaled_dot_product_attention (TF32 off) beside the operations
-    bound (2 matmuls over the S(S+1)/2 unmasked pairs)."""
+    bound (2 matmuls over the S(S+1)/2 unmasked pairs) in split TF32, and
+    as f32 FMAs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -697,7 +810,6 @@ def flash_timed(BH: int, S: int, hd: int) -> dict:
                       "timed": True})
     nbytes = 4 * 4 * BH * S * hd
     flops = 4 * BH * hd * (S * (S + 1) // 2)
-    b, by = bound(nbytes, flops)
     inputs = cold_copies((q, k, v), (0, 1, 2))
     lib = [(a.unsqueeze(0), c.unsqueeze(0), d.unsqueeze(0))
            for a, c, d in inputs]
@@ -708,7 +820,51 @@ def flash_timed(BH: int, S: int, hd: int) -> dict:
                          inputs, iters=5, warmup=1),
         library_ms=cuda_ms(lambda a, c, d: F.scaled_dot_product_attention(
             a, c, d, is_causal=True), lib),
-        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+        arithmetic="split TF32",
+        **bounds(nbytes, flops, SPLIT_TF32 * flops, TF32_FLOP_PER_S))
+    print("kernel_time flash_attention " + json.dumps(out), flush=True)
+    return out
+
+
+def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
+    """B10 at the serve shape in the model's GQA layout, causal bf16 (as
+    qwen3-4b's prefill calls it): kernel and plain version beside the bf16
+    tensor-core bound and the f32-FMA bound; the library yardstick is
+    F.scaled_dot_product_attention in bf16 on (B, Hq, S, hd) copies with
+    the kv heads expanded outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda:0").manual_seed(8)
+    qkv = torch.randn((B, S, Hq + 2 * G, hd), generator=g,
+                      device="cuda:0").bfloat16()
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + G], qkv[:, :, Hq + G:]
+    shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd, "dtype": "bfloat16",
+             "causal": True, "timed": True}
+    out = attn_check("flash_attention", fa.flash_attention_gqa(q, k, v),
+                     ref.flash_attention_gqa_ref(q, k, v), shape,
+                     atol=bf16_atol(v), rtol=BF16_RTOL)
+    nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * G * hd)
+    flops = 4 * B * Hq * hd * (S * (S + 1) // 2)
+    inputs = [(x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:])
+              for (x,) in cold_copies((qkv,), (0,))]
+    rep = Hq // G
+
+    def heads_first(a, c, d):
+        return (a.transpose(1, 2).contiguous(),
+                c.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous(),
+                d.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous())
+
+    lib = [heads_first(*a) for a in inputs[:2]]
+    out.update(
+        ms=cuda_ms(fa.flash_attention_gqa, inputs),
+        plain_ms=cuda_ms(ref.flash_attention_gqa_ref, inputs[:2], iters=3,
+                         warmup=1),
+        library_ms=cuda_ms(lambda a, c, d: F.scaled_dot_product_attention(
+            a, c, d, is_causal=True), lib),
+        arithmetic="bf16", **bounds(nbytes, flops, flops, BF16_FLOP_PER_S))
+    del lib
     print("kernel_time flash_attention " + json.dumps(out), flush=True)
     return out
 
@@ -758,6 +914,7 @@ def attention_phase() -> dict:
                (3, 700, 32, 2, 300), (1, 512, 128, 48, 400)])]
     b11 += kvdq_serving_cases(3, 2, 600, 4, 4, 128, 517, seed=320)
     b10.append(flash_timed(128, 2048, 128))
+    b10.append(flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 32, 8, 128))
     b11.append(kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
                           SERVE_MAX_LEN - 1))
     return {"flash_attention": b10, "kv_dequant_decode_attention": b11}
@@ -831,42 +988,60 @@ def ops_phase() -> dict:
 
 # -- phase 4: the single-group scheduled compute ------------------------------
 
-def single_group_phase() -> dict:
-    """execute_schedule on every distinct stage schedule of qft-26 against
-    execute_schedule_batched with one lane, then a synthetic schedule with
-    a minor-most k = 7 diagonal."""
-    import numpy as np
-    import torch
+def qft_schedules(max_fused_qubits: int) -> list:
+    """The distinct (schedule, operands) of qft-26's bound stages at one
+    fusion width, each on a group of GROUP_BITS qubits."""
     from repro_torch import EngineConfig, Simulator, build_circuit
-    from repro_torch.core.schedule import (compile_schedule,
-                                           execute_schedule,
-                                           execute_schedule_batched)
-
-    with Simulator(build_circuit("qft", MAIN_QUBITS), EngineConfig()) as sim:
+    cfg = EngineConfig(max_fused_qubits=max_fused_qubits)
+    with Simulator(build_circuit("qft", MAIN_QUBITS), cfg) as sim:
         scheds = {}
         for bs in sim._engine._bind_stages(None):
             if bs.plan:
                 scheds.setdefault((bs.plan, bs.sched.nv), (bs.sched, bs.mats))
-    z = group_state(90)
-    cases = []
-    reset_counts()
-    for i, (sched, mats) in enumerate(scheds.values()):
+    for sched, _ in scheds.values():
         if sched.nv != GROUP_BITS:
             fail(f"a qft-{MAIN_QUBITS} group has {sched.nv} qubits, not "
                  f"{GROUP_BITS}")
-        got = execute_schedule(sched, z.clone(), mats, use_kernel=True)
-        cases.append((sched, mats, got))
+    return list(scheds.values())
+
+
+def run_schedules(scheds, z) -> tuple[dict, list[dict]]:
+    """execute_schedule on each schedule (every launch count set to 0 just
+    before, read just after), then each against execute_schedule_batched
+    with one lane within SCHEDULE_RTOL (relative 2-norm)."""
+    from repro_torch.core.schedule import (execute_schedule,
+                                           execute_schedule_batched)
+    reset_counts()
+    got = [execute_schedule(sched, z.clone(), mats, use_kernel=True)
+           for sched, mats in scheds]
     launches = read_counts()
     out = []
-    for sched, mats, got in cases:
+    for (sched, mats), g in zip(scheds, got):
         want = execute_schedule_batched(
             sched, z.clone().unsqueeze(0),
             [m.unsqueeze(0) for m in mats], use_kernel=True)[0]
-        rel = float((got - want).norm() / want.norm())
+        rel = float((g - want).norm() / want.norm())
         out.append({"ops": len(sched.ops), "rel_2norm": rel})
         if not rel <= SCHEDULE_RTOL:
             fail(f"execute_schedule differs from the batched form by "
                  f"{rel:.3e} (relative 2-norm, bound {SCHEDULE_RTOL})")
+    return launches, out
+
+
+def single_group_phase() -> dict:
+    """execute_schedule on every distinct stage schedule of qft-26 against
+    execute_schedule_batched with one lane, then a synthetic schedule with
+    a minor-most k = 7 diagonal, then qft-26's schedules at
+    max_fused_qubits=7 (dense fused gates of K = 128 on B6's tensor-core
+    kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.schedule import (GemmOp, compile_schedule,
+                                           execute_schedule)
+
+    z = group_state(90)
+    cases = qft_schedules(5)
+    launches, out = run_schedules(cases, z)
     # a minor-most k = 7 diagonal: the one schedule branch of diag_apply
     plan = ((tuple(range(7)), True),)
     sched = compile_schedule(plan, GROUP_BITS)
@@ -887,6 +1062,18 @@ def single_group_phase() -> dict:
     if diag_launches != 1 or not rel <= SCHEDULE_RTOL:
         fail(f"the minor-most k=7 diagonal: {diag_launches} diag_apply "
              f"launches (want 1), relative 2-norm {rel:.3e}")
+
+    wide = qft_schedules(7)
+    k128 = sum(isinstance(op, GemmOp) and op.k == 7
+               for sched, _ in wide for op in sched.ops)
+    launches7, out7 = run_schedules(wide, z)
+    res7 = {"max_fused_qubits": 7, "schedules": len(wide),
+            "gemm_ops_k128": k128, "cases": out7,
+            "launches": {k: v for k, v in launches7.items() if v}}
+    print("single_group_k128_check " + json.dumps(res7), flush=True)
+    if k128 <= 0 or launches7["gemm_planes"] < k128:
+        fail(f"qft-{MAIN_QUBITS} at max_fused_qubits=7: {k128} GemmOps of "
+             f"K = 128, {launches7['gemm_planes']} gemm_planes launches")
     return launches
 
 
@@ -1194,7 +1381,7 @@ KERNELS = {
                             {}),
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
                         "src/repro/kernels/flash_attention.py:90", "serve",
-                        {}),
+                        {"dtype": "bfloat16"}),
     "kv_dequant_decode_attention": (
         "src/repro_torch/csrc/attention.cu",
         "src/repro/kernels/kv_dequant_attention.py:98", "serve", {}),
@@ -1262,6 +1449,7 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"build {name} {secs:.3f}s " + " | ".join(regs[:14]),
               flush=True)
+    tensor_core_check(build, log)
 
     checks = kernel_phase()
     checks.update(codec_phase())

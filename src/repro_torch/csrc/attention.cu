@@ -1,35 +1,37 @@
 // Attention for Hopper (sm_90a): the LM serving path's two attention cores.
 //
-// flash_kernel replaces repro/kernels/flash_attention.py::flash_attention
-// (kernel body _flash_kernel, pl.pallas_call at :90): causal (or full)
-// online-softmax attention, scale hd^-0.5, masked scores -2^30, a floor of
-// 1e-30 on the softmax sum, K tiles wholly above the diagonal skipped.
-// One kernel serves the TPU signature (BH, S, hd) and the model's layout:
+// flash_bf16_kernel / flash_f32_kernel replace
+// repro/kernels/flash_attention.py::flash_attention (kernel body
+// _flash_kernel, pl.pallas_call at :90): causal (or full) online-softmax
+// attention, scale hd^-0.5, masked scores -2^30, a floor of 1e-30 on the
+// softmax sum, K tiles wholly above the diagonal skipped.  One kernel per
+// input type serves the TPU signature (BH, S, hd) and the model's layout:
 // q (B, S, Hq, hd) and k/v (B, S, G, hd), all by strides, where query head h
 // reads kv head h / rep (rep = Hq / G, the grouping of _gqa_scores).  No
 // replicated KV heads and no (BH, S, hd) copy are made.
 //
-// What bounds it: f32 operations.  A (BH, S, hd) causal call does
-// 2·BH·S²·hd FMAs over 3·BH·S·hd inputs, ~100 FMA per byte at S = 2048, far
-// above the ~20 FLOP/byte where the card's 3.35 TB/s would take over from
-// its 67 TFLOP/s of f32 FMAs.  This first version runs on the CUDA cores in
-// full f32 (the reference's arithmetic; the tensor cores' bf16 or TF32 would
-// change the numbers).  What its design does about it:
-//   * a block owns 64 query rows of one head and walks that head's K/V in
-//     32-row tiles with running (max, sum) per row: scores never reach
-//     device memory, and the causal tiles past the block's last row are
-//     never read;
-//   * Q, K, V and P tiles sit in shared memory as f32 (bf16 inputs are
-//     widened on load, exactly), rows padded by 4 floats so that the
-//     float4 reads of 8 neighbouring rows hit 8 distinct bank groups; at
-//     hd = 128 that is 77 KB, so two blocks share an SM (registers capped
-//     to match), which measured faster than one block with 64-row tiles;
-//   * each thread owns a 4 x 2 block of the score tile (rows ty + 16i, cols
-//     tx + 16j) and the same 4 rows of the output, so the softmax rescale
-//     stays in registers; a row's 16 owners sit in one half-warp, so its
-//     max and sum take four shuffles;
-//   * blocks of the causal diagonal's far end (the longest rows) launch
-//     first, to shorten the tail.
+// What bounds it: operations.  A (BH, S, hd) causal call does
+// 2·BH·hd·S(S+1)/2 multiply-adds (two products over the unmasked pairs)
+// over 3·BH·S·hd inputs, ~100 FLOP per byte at S = 2048 in f32.  At
+// (128, 2048, 128) that is 2.05 ms as f32 FMAs on the CUDA cores, 0.833 ms
+// as split TF32 (three products each) and 0.139 ms in bf16 on the tensor
+// cores.  So both matmuls run as mma.sync on the tensor cores, with f32
+// sums and the reference's accuracy:
+//   * bf16 inputs: m16n8k16 bf16 MMAs.  Products of bf16 are exact in f32,
+//     which is the arithmetic of _gqa_scores (preferred_element_type f32).
+//     The scale is applied to the f32 scores (folded with log2 e into one
+//     exp2f argument), never to q, which would round q to bf16 again.  p is
+//     rounded to bf16 for P·V, as _gqa_out rounds the probabilities;
+//   * f32 inputs: split TF32 (x = big + small, three m16n8k8 MMAs a product,
+//     as in gate_apply.cu); p stays f32 and is split, not rounded;
+//   * FlashAttention-2's structure: a block of 4 warps owns 128 query rows
+//     of one head, a warp two tiles of 16; the online softmax runs on the
+//     accumulator fragments (a row's max and sum over the thread quad that
+//     holds it), so scores and p never reach shared memory, and K/V tiles
+//     are double-buffered in shared memory with 16-byte cp.async;
+//   * causal K tiles past the block's last row are never read, a warp skips
+//     a tile wholly above its rows, and blocks of the causal diagonal's far
+//     end (the longest rows) launch first, to shorten the tail.
 //
 // kvdq_partial_kernel / kvdq_combine_kernel replace
 // repro/kernels/kv_dequant_attention.py::kv_dequant_decode_attention (body
@@ -69,214 +71,601 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // ---------------------------------------------------------------- B10 -----
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 32;        // key rows per tile
-constexpr int kFThreads = 256;
+constexpr int kFThreads = 128;  // 4 warps
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  // src-size 0 zero-fills the 16 bytes (rows past S)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b over one m16n8k16 bf16 tile, f32 sums (the products are exact)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x's TF32 rounding (nearest, ties away from zero) in an f32 container
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32 (gate_apply.cu's split)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in split TF32: small*big + big*small, then big*big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+// Rows [s0, s0 + ROWS) of one head (row stride rs elements, D contiguous)
+// into a shared tile of pitch P elements; rows at or past S are zeros.
+// vec: 16-byte cp.async (base and strides 16-byte aligned), else element
+// copies.
+template <int ROWS, int D, int P, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
+                                          int s0, int S, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T);  // elements a chunk
+    constexpr int CH = D / E;               // chunks a row
+    for (int e = threadIdx.x; e < ROWS * CH; e += kFThreads) {
+      const int r = e / CH, c = e % CH, s = s0 + r;
+      const bool in = s < S;
+      cp_async16(dst + r * P + c * E, in ? src + s * rs + c * E : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * D; e += kFThreads) {
+      const int r = e / D, d = e % D, s = s0 + r;
+      dst[r * P + d] = s < S ? src[s * rs + d] : zero<T>();
+    }
+  }
+}
+
+// Scores of n-tile j (keys k0 + 8j + 2t + {0, 1}) for rows r0 (c0, c1) and
+// r0 + 8 (c2, c3) set to -2^30 where masked: past S, or above the diagonal.
+template <int NJ>
+__device__ __forceinline__ void mask_scores(float (&sc)[NJ][4], int k0,
+                                            int r0, int t, int S,
+                                            int causal) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int key = k0 + 8 * j + 2 * t + (u & 1);
+      const int row = r0 + 8 * (u >> 1);
+      if (key >= S || (causal && key > row)) sc[j][u] = kNegInf;
+    }
+}
+
+// One tile's online softmax on the accumulator fragments of rows g (i = 0)
+// and g + 8 (i = 1): the rows' max over the quad (two shuffles), scores
+// turned into p = exp2((s - m) scale log2 e) in place, the thread's share
+// of the row sums l rescaled and summed (the quad sums them at the end).
+template <int NJ>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NJ][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float sl2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+  }
+  float mb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    alpha[i] = exp2f((m[i] - mx[i]) * sl2);
+    m[i] = mx[i];
+    mb[i] = mx[i] * sl2;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float p = exp2f(fmaf(sc[j][u], sl2, -mb[u >> 1]));
+      sc[j][u] = p;
+      rs[u >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], alpha[i], rs[i]);
+}
+
+// The denominators of rows g and g + 8: the quad's shares summed, floored.
+__device__ __forceinline__ void finish_rows(float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], kLFloor);
+  }
+}
+
+// Tiles: a warp owns MT m-tiles of 16 query rows (rows 16w + 64i of the
+// block's 64·MT, i < MT, so the causal diagonal's work spreads over the
+// four warps); K/V tiles of BK rows.  Each K or V fragment read from shared
+// memory feeds MT MMAs, which sets the ratio of MMAs to shared-memory
+// reads; MT = 2 holds 32 rows' accumulators, the most 255 registers take.
+// The values below timed fastest at hd = 128 on one H100 among those
+// chip_tiles.py tries (PERF.md §6).
+constexpr int kMTh = 2, kBKh = 64;  // bf16
+constexpr int kMTf = 2, kBKf = 16;  // f32
+
+template <int D, int MT, int BK>
+constexpr int flash_bf16_smem() {
+  return (64 * MT + 4 * BK) * (D + 8) * 2;
+}
+
+// bf16 q/k/v: QK^T and P·V as m16n8k16 bf16 MMAs with f32 sums.  Tiles
+// are rows of D + 8 bf16 (16 bytes mod 128 apart: ldmatrix reads 8 rows
+// from 8 bank groups).  Q's fragments come from shared memory through
+// ldmatrix; K/V tiles are double-buffered with cp.async; K feeds the B
+// fragments through ldmatrix, V through ldmatrix.trans; p is rounded to
+// bf16 in registers and used as P·V's A operand (the m16n8 accumulator
+// layout of two n-tiles is the m16n8k16 A layout), so it never touches
+// shared memory.
+template <int D, int MT, int BK>
+__global__ void __launch_bounds__(kFThreads, 2)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
+                  long long qs, long long qh,
+                  const __nv_bfloat16* __restrict__ k, long long kb,
+                  long long ks, long long kh,
+                  const __nv_bfloat16* __restrict__ v, long long vb,
+                  long long vs, long long vh, __nv_bfloat16* __restrict__ o,
+                  long long ob, long long os, long long oh, int S, int Hq,
+                  int rep, int causal, float sl2, int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BQ = 64 * MT, P = D + 8, NJ = BK / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * P;       // two stages
+  bf16* Vs = Ks + 2 * BK * P;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh % Hq, kvh = h / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int w0 = q0 + 16 * warp;             // the warp's first row
+  const int w1 = w0 + 64 * (MT - 1) + 15;    // and its last
+  const bf16* qp = q + b * qb + h * qh;
+  const bf16* kp = k + b * kb + kvh * kh;
+  const bf16* vp = v + b * vb + kvh * vh;
+
+  int n_kt = (S + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  load_tile<BQ, D, P>(Qs, qp, qs, q0, S, vec);
+  load_tile<BK, D, P>(Ks, kp, ks, 0, S, vec);
+  load_tile<BK, D, P>(Vs, vp, vs, 0, S, vec);
+  cp_async_commit();
+
+  float acc[MT][ND][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][dt][u] = 0.f;
+  }
+  const bf16* qa_row = Qs + (16 * warp + (lane & 15)) * P + 8 * (lane >> 4);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK, buf = kt & 1;
+    if (kt + 1 < n_kt) {
+      load_tile<BK, D, P>(Ks + (buf ^ 1) * BK * P, kp, ks, k0 + BK, S, vec);
+      load_tile<BK, D, P>(Vs + (buf ^ 1) * BK * P, vp, vs, k0 + BK, S, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // a warp whose rows all lie above the tile's first key has nothing here
+    if (!(causal && k0 > w1)) {
+      const bf16* Kt = Ks + buf * BK * P;
+      const bf16* Vt = Vs + buf * BK * P;
+      float sc[MT][NJ][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) sc[i][j][u] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_x4(qa[i], qa_row + 64 * i * P + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, Kt + (16 * jp + (lane & 7) + 8 * (lane >> 4)) * P +
+                              16 * kk + 8 * ((lane >> 3) & 1));
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_bf16(sc[i][2 * jp], qa[i], bk[0], bk[1]);
+            mma_bf16(sc[i][2 * jp + 1], qa[i], bk[2], bk[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (k0 + BK > S || (causal && k0 + BK - 1 > w0 + 64 * i))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal);
+        float alpha[2];
+        softmax_tile(sc[i], m[i], l[i], alpha, sl2);
+#pragma unroll
+        for (int dt = 0; dt < ND; ++dt) {
+          acc[i][dt][0] *= alpha[0];
+          acc[i][dt][1] *= alpha[0];
+          acc[i][dt][2] *= alpha[1];
+          acc[i][dt][3] *= alpha[1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          pa[i][0] = pack_bf16(sc[i][2 * kk][0], sc[i][2 * kk][1]);
+          pa[i][1] = pack_bf16(sc[i][2 * kk][2], sc[i][2 * kk][3]);
+          pa[i][2] = pack_bf16(sc[i][2 * kk + 1][0], sc[i][2 * kk + 1][1]);
+          pa[i][3] = pack_bf16(sc[i][2 * kk + 1][2], sc[i][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, Vt + (16 * kk + (lane & 7) +
+                                      8 * ((lane >> 3) & 1)) * P +
+                                    16 * dp + 8 * (lane >> 4));
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_bf16(acc[i][2 * dp], pa[i], bv[0], bv[1]);
+            mma_bf16(acc[i][2 * dp + 1], pa[i], bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    finish_rows(l[i]);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = w0 + 64 * i + g + 8 * hi;
+      if (r >= S) continue;
+      bf16* orow = o + b * ob + r * os + h * oh;
+#pragma unroll
+      for (int dt = 0; dt < ND; ++dt)
+        *reinterpret_cast<uint32_t*>(orow + 8 * dt + 2 * t) =
+            pack_bf16(acc[i][dt][2 * hi] / l[i][hi],
+                      acc[i][dt][2 * hi + 1] / l[i][hi]);
+    }
+  }
+}
 
 template <int D>
-constexpr int flash_smem_bytes() {
-  return (kBQ * (D + 4) + 2 * kBK * (D + 4) + kBQ * (kBK + 4)) * 4;
+struct F32Pitch {
+  // Q/K rows 16 floats mod 32 apart: a float4 fragment read of 8 lanes
+  // (rows g, g+1; columns 4t) hits 8 distinct bank groups; V rows 4 apart:
+  // the float2 reads of rows 2t, 2t+1 by 16 lanes hit distinct banks
+  static constexpr int K = D + (D % 32 == 0 ? 16 : 0);
+  static constexpr int V = D + 4;
+};
+
+template <int D, int MT, int BK>
+constexpr int flash_f32_smem() {
+  return (64 * MT * F32Pitch<D>::K +
+          2 * BK * (F32Pitch<D>::K + F32Pitch<D>::V)) * 4;
 }
 
-template <int D, typename T>
+// f32 q/k/v: the same skeleton with split TF32 (three m16n8k8 MMAs a
+// product, as in gate_apply.cu) for QK^T and P·V; p stays f32 and is split,
+// not rounded.  The reduction indices are permuted so that fragments come
+// as float4 (Q, K: slots t, t+4 of steps 2c, 2c+1 are columns 16c + 4t ..
+// +3) and float2 (V: rows 2t, 2t+1 are the keys of slots t, t+4, which
+// are where the score accumulators hold them); V's output columns are
+// permuted (n-tile pair 2p, 2p+1, column g -> 16p + 2g + {0, 1}) so each
+// V read is one float2 and each output write one float4.
+template <int D, int MT, int BK>
 __global__ void __launch_bounds__(kFThreads, 2)
-flash_kernel(const T* __restrict__ q, long long qb, long long qs,
-             long long qh, const T* __restrict__ k, long long kb,
-             long long ks, long long kh, const T* __restrict__ v,
-             long long vb, long long vs, long long vh, T* __restrict__ o,
-             long long ob, long long os, long long oh, int S, int Hq,
-             int rep, int causal, float scale) {
-  constexpr int LD = D + 4;      // row pitch of the Q/K/V tiles (floats)
-  constexpr int LP = kBK + 4;    // row pitch of the P tile
-  constexpr int CPT = D / 16;    // output columns a thread owns
-  constexpr int SJ = kBK / 16;   // score columns a thread owns
+flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
+                 long long qh, const float* __restrict__ k, long long kb,
+                 long long ks, long long kh, const float* __restrict__ v,
+                 long long vb, long long vs, long long vh,
+                 float* __restrict__ o, long long ob, long long os,
+                 long long oh, int S, int Hq, int rep, int causal, float sl2,
+                 int vec) {
+  constexpr int BQ = 64 * MT, NJ = BK / 8, ND = D / 8;
+  constexpr int PK = F32Pitch<D>::K, PV = F32Pitch<D>::V;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
+  float* Ks = Qs + BQ * PK;     // two stages
+  float* Vs = Ks + 2 * BK * PK;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
-  const int b = bh / Hq, h = bh % Hq, g = h / rep;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qp = q + b * qb + h * qh;
-  const T* kp = k + b * kb + g * kh;
-  const T* vp = v + b * vb + g * vh;
+  const int b = bh / Hq, h = bh % Hq, kvh = h / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int w0 = q0 + 16 * warp;             // the warp's first row
+  const int w1 = w0 + 64 * (MT - 1) + 15;    // and its last
+  const float* qp = q + b * qb + h * qh;
+  const float* kp = k + b * kb + kvh * kh;
+  const float* vp = v + b * vb + kvh * vh;
 
-  for (int e = tid; e < kBQ * D; e += kFThreads) {
-    const int r = e / D, d = e % D, s = q0 + r;
-    Qs[r * LD + d] = s < S ? to_f32(qp[s * qs + d]) * scale : 0.f;
-  }
+  int n_kt = (S + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  load_tile<BQ, D, PK>(Qs, qp, qs, q0, S, vec);
+  load_tile<BK, D, PK>(Ks, kp, ks, 0, S, vec);
+  load_tile<BK, D, PV>(Vs, vp, vs, 0, S, vec);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][CPT];
+  float acc[MT][ND][4], m[MT][2], l[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int i = 0; i < MT; ++i) {
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+    for (int dt = 0; dt < ND; ++dt)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][dt][u] = 0.f;
   }
+  const float* qrow = Qs + (16 * warp + g) * PK + 4 * t;
 
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ + kBK - 1) / kBK);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * D; e += kFThreads) {
-      const int r = e / D, d = e % D, s = k0 + r;
-      const bool in = s < S;
-      Ks[r * LD + d] = in ? to_f32(kp[s * ks + d]) : 0.f;
-      Vs[r * LD + d] = in ? to_f32(vp[s * vs + d]) : 0.f;
+    const int k0 = kt * BK, buf = kt & 1;
+    if (kt + 1 < n_kt) {
+      load_tile<BK, D, PK>(Ks + (buf ^ 1) * BK * PK, kp, ks, k0 + BK, S, vec);
+      load_tile<BK, D, PV>(Vs + (buf ^ 1) * BK * PV, vp, vs, k0 + BK, S, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float sc[4][SJ];
+    if (!(causal && k0 > w1)) {
+      const float* Kt = Ks + buf * BK * PK + g * PK + 4 * t;
+      const float* Vt = Vs + buf * BK * PV + 2 * t * PV + 2 * g;
+      float sc[MT][NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], ka[SJ];
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + d]);
+          for (int u = 0; u < 4; ++u) sc[i][j][u] = 0.f;
 #pragma unroll
-      for (int j = 0; j < SJ; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t ab[MT][2][4], as[MT][2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < MT; ++i) {
+          const float* qi = qrow + 64 * i * PK + 16 * c;
+          const float4 qx = *reinterpret_cast<const float4*>(qi);
+          const float4 qy = *reinterpret_cast<const float4*>(qi + 8 * PK);
+          const float fa[2][4] = {{qx.x, qy.x, qx.y, qy.y},
+                                  {qx.z, qy.z, qx.w, qy.w}};
 #pragma unroll
-        for (int j = 0; j < SJ; ++j) {
-          float t = sc[i][j];
-          t = fmaf(qa[i].x, ka[j].x, t);
-          t = fmaf(qa[i].y, ka[j].y, t);
-          t = fmaf(qa[i].z, ka[j].z, t);
-          t = fmaf(qa[i].w, ka[j].w, t);
-          sc[i][j] = t;
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              split_tf32(fa[hh][u], ab[i][hh][u], as[i][hh][u]);
         }
-    }
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = kNegInf;
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kx =
+              *reinterpret_cast<const float4*>(Kt + 8 * j * PK + 16 * c);
+          uint32_t kbg[4], ksm[4];
+          split_tf32(kx.x, kbg[0], ksm[0]);
+          split_tf32(kx.y, kbg[1], ksm[1]);
+          split_tf32(kx.z, kbg[2], ksm[2]);
+          split_tf32(kx.w, kbg[3], ksm[3]);
 #pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c >= S || (causal && c > r)) sc[i][j] = kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < SJ; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        Ps[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * LP + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = &Vs[(kk + u) * LD];
-        float vv[CPT];
-        if constexpr (CPT >= 4) {
-#pragma unroll
-          for (int c4 = 0; c4 < CPT / 4; ++c4) {
-            const float4 t =
-                *reinterpret_cast<const float4*>(&vrow[64 * c4 + 4 * tx]);
-            vv[4 * c4] = t.x;
-            vv[4 * c4 + 1] = t.y;
-            vv[4 * c4 + 2] = t.z;
-            vv[4 * c4 + 3] = t.w;
+          for (int i = 0; i < MT; ++i) {
+            mma_3xtf32(sc[i][j], ab[i][0], as[i][0], kbg[0], kbg[1], ksm[0],
+                       ksm[1]);
+            mma_3xtf32(sc[i][j], ab[i][1], as[i][1], kbg[2], kbg[3], ksm[2],
+                       ksm[3]);
           }
-        } else {
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) vv[c] = vrow[tx * CPT + c];
         }
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y
-                        : u == 2 ? pa[i].z : pa[i].w;
+      for (int i = 0; i < MT; ++i) {
+        if (k0 + BK > S || (causal && k0 + BK - 1 > w0 + 64 * i))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal);
+        float alpha[2];
+        softmax_tile(sc[i], m[i], l[i], alpha, sl2);
 #pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int dt = 0; dt < ND; ++dt) {
+          acc[i][dt][0] *= alpha[0];
+          acc[i][dt][1] *= alpha[0];
+          acc[i][dt][2] *= alpha[1];
+          acc[i][dt][3] *= alpha[1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        // slots t, t+4 of this step are keys 8kk + 2t, 8kk + 2t + 1
+        uint32_t pb[MT][4], ps[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float fp[4] = {sc[i][kk][0], sc[i][kk][2], sc[i][kk][1],
+                               sc[i][kk][3]};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) split_tf32(fp[u], pb[i][u], ps[i][u]);
+        }
+        const float* v0 = Vt + 8 * kk * PV;
+#pragma unroll
+        for (int p = 0; p < ND / 2; ++p) {
+          const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * p);
+          const float2 x1 = *reinterpret_cast<const float2*>(v0 + PV + 16 * p);
+          uint32_t vb[4], vsm[4];
+          split_tf32(x0.x, vb[0], vsm[0]);
+          split_tf32(x1.x, vb[1], vsm[1]);
+          split_tf32(x0.y, vb[2], vsm[2]);
+          split_tf32(x1.y, vb[3], vsm[3]);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_3xtf32(acc[i][2 * p], pb[i], ps[i], vb[0], vb[1], vsm[0],
+                       vsm[1]);
+            mma_3xtf32(acc[i][2 * p + 1], pb[i], ps[i], vb[2], vb[3],
+                       vsm[2], vsm[3]);
+          }
         }
       }
     }
+    __syncthreads();  // the tile's readers are done before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    const float den = fmaxf(l[i], kLFloor);
-    T* orow = o + b * ob + r * os + h * oh;
+  for (int i = 0; i < MT; ++i) {
+    finish_rows(l[i]);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = CPT >= 4 ? 64 * (c / 4) + 4 * tx + (c % 4) : tx * CPT + c;
-      put(&orow[col], acc[i][c] / den);
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = w0 + 64 * i + g + 8 * hi;
+      if (r >= S) continue;
+      float* orow = o + b * ob + r * os + h * oh;
+#pragma unroll
+      for (int p = 0; p < ND / 2; ++p)
+        *reinterpret_cast<float4*>(orow + 16 * p + 4 * t) = make_float4(
+            acc[i][2 * p][2 * hi] / l[i][hi],
+            acc[i][2 * p + 1][2 * hi] / l[i][hi],
+            acc[i][2 * p][2 * hi + 1] / l[i][hi],
+            acc[i][2 * p + 1][2 * hi + 1] / l[i][hi]);
     }
   }
 }
 
-template <int D, typename T>
-cudaError_t launch_flash(const void* q, const long long* qst, const void* k,
+// base and (batch, sequence, head) strides all 16-byte multiples
+inline bool aligned16(const void* p, const long long* st, size_t el) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (st[0] * el) % 16 == 0 && (st[1] * el) % 16 == 0 &&
+         (st[2] * el) % 16 == 0;
+}
+
+template <typename T, typename Kernel>
+cudaError_t launch_flash(Kernel kernel, int smem, int bq, const void* q,
+                         const long long* qst, const void* k,
                          const long long* kst, const void* v,
                          const long long* vst, void* o, const long long* ost,
-                         int B, int S, int Hq, int G, int causal,
+                         int B, int S, int Hq, int G, int D, int causal,
                          cudaStream_t stream) {
-  constexpr int smem = flash_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((S + kBQ - 1) / kBQ));
-  flash_kernel<D, T><<<grid, kFThreads, smem, stream>>>(
+  const int vec = aligned16(q, qst, sizeof(T)) &&
+                  aligned16(k, kst, sizeof(T)) && aligned16(v, vst, sizeof(T));
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((S + bq - 1) / bq));
+  kernel<<<grid, kFThreads, smem, stream>>>(
       static_cast<const T*>(q), qst[0], qst[1], qst[2],
       static_cast<const T*>(k), kst[0], kst[1], kst[2],
       static_cast<const T*>(v), vst[0], vst[1], vst[2], static_cast<T*>(o),
       ost[0], ost[1], ost[2], S, Hq, Hq / G, causal,
-      1.0f / sqrtf((float)D));
+      1.4426950408889634f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_flash(const void* q, const long long* qst, const void* k,
-                           const long long* kst, const void* v,
-                           const long long* vst, void* o, const long long* ost,
-                           int B, int S, int Hq, int G, int hd, int causal,
-                           cudaStream_t s) {
+template <int D>
+cudaError_t launch_flash_d(int bf16, const void* q, const long long* qst,
+                           const void* k, const long long* kst,
+                           const void* v, const long long* vst, void* o,
+                           const long long* ost, int B, int S, int Hq, int G,
+                           int causal, cudaStream_t s) {
+  if (bf16)
+    return launch_flash<__nv_bfloat16>(
+        flash_bf16_kernel<D, kMTh, kBKh>,
+        flash_bf16_smem<D, kMTh, kBKh>(), 64 * kMTh, q, qst, k, kst, v, vst,
+        o, ost, B, S, Hq, G, D, causal, s);
+  return launch_flash<float>(
+      flash_f32_kernel<D, kMTf, kBKf>, flash_f32_smem<D, kMTf, kBKf>(),
+      64 * kMTf, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, D, causal, s);
+}
+
+cudaError_t dispatch_flash(int bf16, const void* q, const long long* qst,
+                           const void* k, const long long* kst,
+                           const void* v, const long long* vst, void* o,
+                           const long long* ost, int B, int S, int Hq, int G,
+                           int hd, int causal, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_flash<16, T>(q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 32: return launch_flash<32, T>(q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 64: return launch_flash<64, T>(q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 128: return launch_flash<128, T>(q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
+    case 16: return launch_flash_d<16>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
+    case 32: return launch_flash_d<32>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
+    case 64: return launch_flash_d<64>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
+    case 128: return launch_flash_d<128>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -548,13 +937,9 @@ int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
                         int causal, int bf16, void* stream) {
   if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? (int)dispatch_flash<__nv_bfloat16>(q, q_st, k, k_st, v, v_st,
-                                                   o, o_st, batch, seq, heads,
-                                                   kv_heads, hd, causal, s)
-              : (int)dispatch_flash<float>(q, q_st, k, k_st, v, v_st, o, o_st,
-                                           batch, seq, heads, kv_heads, hd,
-                                           causal, s);
+  return (int)dispatch_flash(bf16, q, q_st, k, k_st, v, v_st, o, o_st, batch,
+                             seq, heads, kv_heads, hd, causal,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // B11.  q (B, G, rep, hd) f32 or bf16; each cache operand (B, G, T, ·):

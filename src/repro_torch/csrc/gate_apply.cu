@@ -16,8 +16,8 @@
 // (16 bytes of planes in and out per complex amplitude) for 4K FMAs, so at
 // the main path's K <= 32 the kernel does about 16 FLOP per byte, far below
 // the ~20 FLOP/byte where the card's f32 FMA rate (67 TFLOP/s) would take
-// over from its 3.35 TB/s.  Sums are plain f32 FMAs: no TF32 and no tensor
-// cores, because the reference is full f32.
+// over from its 3.35 TB/s.  Sums are plain f32 FMAs on the CUDA cores: the
+// kernel waits on HBM, so the tensor cores would not shorten it.
 //
 // What the design does about it:
 //   * one block owns a run of row tiles of one lane (blockIdx.y = lane) and
@@ -32,6 +32,31 @@
 //     loop reads only A from shared memory, as broadcast float4 loads: the
 //     shared-memory traffic stays well under the FMA rate and the kernel
 //     waits on HBM, not on the SM.
+//
+// gemm_planes_tc_kernel is gemm_planes (B6) at K >= 64, where the body
+// above runs out of registers for column j of B and reads two floats of B
+// from shared memory for every four FMAs: the SM's shared-memory port, not
+// HBM, set its pace (17% of its bound at K = 128).  At K = 128 the product
+// does 8 R K^2 operations over 16 R K bytes, 64 FLOP a byte: above the
+// ~20 where the f32 FMA rate takes over from HBM.  So this kernel moves the
+// products to the tensor cores and keeps f32 accuracy with split TF32:
+//   * each operand is split as x = big + small, both TF32 (round to nearest,
+//     ties away, on the bit pattern: big = (bits + 2^12) & ~(2^13 - 1));
+//     a real product is three mma.sync.m16n8k8 TF32 with f32 sums,
+//     small*big + big*small first, big*big last (CUTLASS's
+//     OpMultiplyAddFastF32); only small*small, ~2^-22 relative, is dropped;
+//   * the four real products of the complex one fold into two
+//     accumulators: Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br, so one split
+//     A fragment feeds both;
+//   * persistent blocks, as many as fit on the SMs: a block stores B's two
+//     planes once, in fragment order (one 16-byte shared load a lane for the
+//     (Br, Bi) pair of an 8x8 tile; 128 KB at K = 128), then each warp walks
+//     16-row tiles of A (at K = 64 two warps share a row tile, each with half
+//     the columns).  The reduction index is permuted so that a thread's
+//     A fragments for two k-steps are one float4 of its row, read straight
+//     from HBM into registers (next chunk prefetched), and the output index
+//     so that its accumulators of two n-tiles are one float4 of C: A and C
+//     cross HBM once, with no shared-memory staging.
 //
 // gemm_planes_mid_kernel replaces gemm_planes_mid (_gemm_mid_kernel,
 // pl.pallas_call at :153): the batched left contraction over an (O, K, I)
@@ -54,6 +79,7 @@
 // L1 after the first warp) is read through the read-only cache, as a
 // float4 per four elements for K >= 4.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -185,6 +211,201 @@ cudaError_t launch(const float* ar, const float* ai, long long a_lane,
   return cudaGetLastError();
 }
 
+
+// -- gemm_planes at K >= 64: split TF32 on the tensor cores ------------------
+
+// x's TF32 rounding (nearest, ties away from zero) in an f32 container
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b over one m16n8k8 TF32 tile, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in split TF32: small*big + big*small, then big*big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// Fragment order of B: step s (8 reduction indices) and n-tile j (8 output
+// columns) hold, for lane (g = lane / 4, t = lane % 4), the float4
+// (Br[k0][n], Br[k0 + 1][n], Bi[k0][n], Bi[k0 + 1][n]) with
+//   k0 = 16 (s / 2) + 4 t + 2 (s % 2)   (slots t and t + 4 of the step)
+//   n  = 16 (j / 2) + 4 (g / 2) + 2 (j % 2) + g % 2.
+// The first makes slots t, t+4 of steps 2c and 2c+1 the float4 at column
+// 16c + 4t of A's row; the second makes accumulator columns 2t, 2t+1 of
+// n-tiles 2p and 2p+1 the float4 at column 16p + 4t of C's row.
+// Work units: a warp takes 16 rows by K / NC output columns at a time (NC
+// warps share a row tile), WARPS warps a block.  The values below timed
+// fastest at R K = 2^22 on one H100 among those chip_tiles.py tries
+// (PERF.md §6); at K = 128 more warps or fewer accumulators a warp did
+// not help: mma.sync's TF32 rate sets the pace.
+constexpr int tc_nc(int K) { return K >= 128 ? 1 : 2; }
+constexpr int tc_warps(int K) { return K >= 128 ? 8 : 16; }
+
+template <int K, int NC, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+gemm_planes_tc_kernel(const float* __restrict__ ar,
+                      const float* __restrict__ ai,
+                      const float* __restrict__ br,
+                      const float* __restrict__ bi, long long b_row,
+                      long long b_col, float* __restrict__ cr,
+                      float* __restrict__ ci, long long rows) {
+  constexpr int NT = K / 8;    // n-tiles (and k-steps) of the whole B
+  constexpr int NTC = NT / NC; // n-tiles a warp owns
+  constexpr int KC = K / 16;   // chunks of two k-steps: one float4 a row
+  static_assert(NTC % 2 == 0, "n-tiles go in pairs");
+  extern __shared__ __align__(16) float smem[];
+  float4* sb = reinterpret_cast<float4*>(smem);  // [NT steps][NT][32]
+  for (int e = threadIdx.x; e < NT * NT * 32; e += WARPS * 32) {
+    const int lane = e & 31, j = (e >> 5) % NT, s = (e >> 5) / NT;
+    const int g = lane >> 2, t = lane & 3;
+    const long long k0 = 16 * (s >> 1) + 4 * t + 2 * (s & 1);
+    const long long n = 16 * (j >> 1) + 4 * (g >> 1) + 2 * (j & 1) + (g & 1);
+    const long long o = k0 * b_row + n * b_col;
+    sb[e] = make_float4(br[o], br[o + b_row], bi[o], bi[o + b_row]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long units = (rows + 15) / 16 * NC;
+  const long long n_warps = (long long)gridDim.x * WARPS;
+  for (long long unit = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+       unit < units; unit += n_warps) {
+    const long long tile = unit / NC;
+    const int j0 = (int)(unit % NC) * NTC;  // the warp's first n-tile
+    const long long r0 = tile * 16 + g, r1 = r0 + 8;
+    const bool v0 = r0 < rows, v1 = r1 < rows;
+    // row g and row g + 8 of both planes, as float4 chunks of 16 columns
+    const float4* pa[4] = {
+        reinterpret_cast<const float4*>(ar + r0 * K) + t,
+        reinterpret_cast<const float4*>(ar + r1 * K) + t,
+        reinterpret_cast<const float4*>(ai + r0 * K) + t,
+        reinterpret_cast<const float4*>(ai + r1 * K) + t};
+    const bool live[4] = {v0, v1, v0, v1};
+    float4 x[4], nx[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x[q] = live[q] ? __ldg(pa[q]) : make_float4(0.f, 0.f, 0.f, 0.f);
+
+    float accr[NTC][4], acci[NTC][4];
+#pragma unroll
+    for (int j = 0; j < NTC; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) accr[j][u] = acci[j][u] = 0.f;
+
+#pragma unroll 1
+    for (int c = 0; c < KC; ++c) {
+      if (c + 1 < KC) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          nx[q] = live[q] ? __ldg(pa[q] + 4 * (c + 1))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A fragments (rows g, g+8; slots t, t+4) of step 2c + h
+        const float fr[4] = {h ? x[0].z : x[0].x, h ? x[1].z : x[1].x,
+                             h ? x[0].w : x[0].y, h ? x[1].w : x[1].y};
+        const float fi[4] = {h ? x[2].z : x[2].x, h ? x[3].z : x[3].x,
+                             h ? x[2].w : x[2].y, h ? x[3].w : x[3].y};
+        uint32_t rb[4], rs[4], ib[4], is[4], nb[4], ns[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          split_tf32(fr[u], rb[u], rs[u]);
+          split_tf32(fi[u], ib[u], is[u]);
+          nb[u] = ib[u] ^ 0x80000000u;  // -Ai: the split of -x is -(split)
+          ns[u] = is[u] ^ 0x80000000u;
+        }
+        const float4* srow = sb + ((size_t)(2 * c + h) * NT + j0) * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < NTC; ++j) {
+          const float4 b = srow[j * 32];
+          uint32_t brb0, brs0, brb1, brs1, bib0, bis0, bib1, bis1;
+          split_tf32(b.x, brb0, brs0);
+          split_tf32(b.y, brb1, brs1);
+          split_tf32(b.z, bib0, bis0);
+          split_tf32(b.w, bib1, bis1);
+          mma_3xtf32(accr[j], rb, rs, brb0, brb1, brs0, brs1);  // Ar Br
+          mma_3xtf32(acci[j], rb, rs, bib0, bib1, bis0, bis1);  // Ar Bi
+          mma_3xtf32(accr[j], nb, ns, bib0, bib1, bis0, bis1);  // -Ai Bi
+          mma_3xtf32(acci[j], ib, is, brb0, brb1, brs0, brs1);  // Ai Br
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = nx[q];
+    }
+
+    // n-tiles 2p, 2p+1: columns 16p + 4t .. +3 of rows g and g + 8
+    float* cr0 = cr + r0 * K + 4 * t + 8 * j0;
+    float* ci0 = ci + r0 * K + 4 * t + 8 * j0;
+#pragma unroll
+    for (int p = 0; p < NTC / 2; ++p) {
+      if (v0) {
+        *reinterpret_cast<float4*>(cr0 + 16 * p) = make_float4(
+            accr[2 * p][0], accr[2 * p][1], accr[2 * p + 1][0],
+            accr[2 * p + 1][1]);
+        *reinterpret_cast<float4*>(ci0 + 16 * p) = make_float4(
+            acci[2 * p][0], acci[2 * p][1], acci[2 * p + 1][0],
+            acci[2 * p + 1][1]);
+      }
+      if (v1) {
+        *reinterpret_cast<float4*>(cr0 + 8 * K + 16 * p) = make_float4(
+            accr[2 * p][2], accr[2 * p][3], accr[2 * p + 1][2],
+            accr[2 * p + 1][3]);
+        *reinterpret_cast<float4*>(ci0 + 8 * K + 16 * p) = make_float4(
+            acci[2 * p][2], acci[2 * p][3], acci[2 * p + 1][2],
+            acci[2 * p + 1][3]);
+      }
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch_tc(const float* ar, const float* ai, const float* br,
+                      const float* bi, long long b_row, long long b_col,
+                      float* cr, float* ci, long long rows,
+                      cudaStream_t stream) {
+  constexpr int NC = tc_nc(K), WARPS = tc_warps(K);
+  auto kernel = gemm_planes_tc_kernel<K, NC, WARPS>;
+  const int smem = 2 * K * K * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, WARPS * 32, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = (rows + 15) / 16 * NC;
+  const long long need = (units + WARPS - 1) / WARPS;
+  const long long cap = (long long)sms * per_sm;
+  kernel<<<(unsigned)(need < cap ? need : cap), WARPS * 32, smem, stream>>>(
+      ar, ai, br, bi, b_row, b_col, cr, ci, rows);
+  return cudaGetLastError();
+}
 
 // -- gemm_planes_mid ---------------------------------------------------------
 
@@ -369,13 +590,22 @@ int gemm_planes_batch_f32(const float* ar, const float* ai, long long a_lane,
                        lanes, rows, k, vec4, static_cast<cudaStream_t>(stream));
 }
 
-// B6: one (R, K) x (K, K) product — B1's body with one lane.
+// B6: one (R, K) x (K, K) product — B1's body with one lane for K <= 32
+// (bound by bytes), the split-TF32 tensor-core kernel for K >= 64 when A's
+// planes are 16-byte aligned (vec4; C is allocated by the caller, aligned).
 int gemm_planes_f32(const float* ar, const float* ai, const float* br,
                     const float* bi, long long b_row, long long b_col,
                     float* cr, float* ci, long long rows, int k, int vec4,
                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec4 && rows > 0) {
+    if (k == 64)
+      return (int)launch_tc<64>(ar, ai, br, bi, b_row, b_col, cr, ci, rows, s);
+    if (k == 128)
+      return (int)launch_tc<128>(ar, ai, br, bi, b_row, b_col, cr, ci, rows, s);
+  }
   return dispatch_gemm(ar, ai, 0, br, bi, 0, b_row, b_col, cr, ci, 1, rows,
-                       k, vec4, static_cast<cudaStream_t>(stream));
+                       k, vec4, s);
 }
 
 // B7.  A is a contiguous (O, K, I) stack; U (K, K) any strides; C is

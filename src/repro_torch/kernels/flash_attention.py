@@ -11,10 +11,12 @@ flash_attention``:
   ``models.attention.attention_full``.
 
 Both take float32 or bfloat16 (q, k and v alike) and return q's dtype;
-the sums are f32.  On a CUDA tensor they launch the hand-written Hopper
-kernel in ``csrc/attention.cu`` (see the note there for what bounds it)
-through strides, with no copy of q, k or v; on a CPU tensor they run the
-plain versions in :mod:`.ref`.  Any other device raises — there is no
+the sums are f32, and for bf16 inputs the probabilities are rounded to
+bf16 before P·V, as ``repro.models.attention._gqa_out`` rounds them.  On
+a CUDA tensor they launch the hand-written Hopper kernel in
+``csrc/attention.cu`` (see the note there for what bounds it) through
+strides, with no copy of q, k or v; on a CPU tensor they run the plain
+versions in :mod:`.ref`.  Any other device raises — there is no
 fallback from the kernel.  :data:`launch_counts` counts CUDA launches.
 """
 from __future__ import annotations

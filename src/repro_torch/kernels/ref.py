@@ -263,30 +263,39 @@ KV_CODE_MAX = 255
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor | None) -> torch.Tensor:
+            mask: torch.Tensor | None, p_dtype=None) -> torch.Tensor:
     """f32 softmax attention over the last two axes; leading axes
-    broadcast, so a (..., 1, T, hd) k serves (..., rep, S, hd) queries."""
+    broadcast, so a (..., 1, T, hd) k serves (..., rep, S, hd) queries.
+    ``p_dtype`` rounds the probabilities to it before P·V (sums in f32)."""
     s = torch.einsum("...sd,...td->...st", q, k) * (q.shape[-1] ** -0.5)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
-    return torch.einsum("...st,...td->...sd", torch.softmax(s, dim=-1), v)
+    p = torch.softmax(s, dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    return torch.einsum("...st,...td->...sd", p, v)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """q/k/v (..., S, hd) -> (..., S, hd) f32, masked to j <= i when
-    ``causal`` (``tests/test_kernels_flash.py``'s oracle)."""
+    ``causal`` (``tests/test_kernels_flash.py``'s oracle).  For bf16 inputs
+    the probabilities are rounded to bf16 before P·V, as
+    ``repro.models.attention._gqa_out`` rounds them (and the kernel's bf16
+    P·V on the tensor cores does)."""
     S = q.shape[-2]
     mask = (torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
             if causal else None)
-    return _attend(q.float(), k.float(), v.float(), mask)
+    p_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else None
+    return _attend(q.float(), k.float(), v.float(), mask, p_dtype)
 
 
 def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True
                             ) -> torch.Tensor:
     """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype;
-    query head h = g·rep + r reads kv head g."""
+    query head h = g·rep + r reads kv head g (bf16: probabilities rounded
+    to bf16 before P·V, as in :func:`flash_attention_ref`)."""
     B, S, Hq, hd = q.shape
     G = k.shape[2]
     qh = q.permute(0, 2, 1, 3).reshape(B, G, Hq // G, S, hd)

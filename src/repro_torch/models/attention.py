@@ -3,9 +3,10 @@
 The port of ``repro/models/attention.py`` for full attention layers: GQA
 group sizes from MQA (granite kv=1) to MHA, qk-norm (qwen3), QKV bias
 (qwen1.5).  ``attention_full``'s attention core is the flash-attention
-kernel (``kernels/flash_attention.py``, B10), which computes in f32 and
-never materialises the scores; the raw-cache decode stays plain torch, as
-it is plain XLA in the JAX package.  Softmax accumulates in f32;
+kernel (``kernels/flash_attention.py``, B10), which sums in f32, rounds
+the probabilities to bf16 for P·V as ``_gqa_out`` does, and never
+materialises the scores; the raw-cache decode stays plain torch, as it is
+plain XLA in the JAX package.  Softmax accumulates in f32;
 activations are bf16.
 
 Not ported yet (they raise ``NotImplementedError``): sliding windows, the
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.devices import resolve_device
 from ..kernels.flash_attention import flash_attention_gqa
 from ..kernels.ref import NEG_INF
 from .config import ModelConfig
@@ -32,8 +34,9 @@ __all__ = ["init_attn_params", "attention_full", "attention_decode",
 def init_attn_params(gen, cfg: ModelConfig, dtype=torch.bfloat16,
                      device=None, lead=()) -> dict:
     """The layer's weights, each with the leading (stacking) axes
-    ``lead``."""
+    ``lead``; ``device=None`` means ``cuda:0``."""
     d, hd = cfg.d_model, cfg.hd
+    device = resolve_device(device)
 
     def w(shape):
         return dense_init(gen, lead + shape, len(lead), dtype, device)
@@ -121,7 +124,9 @@ def attention_full(x, prm, cfg: ModelConfig, positions, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked KV cache for n_layers of one kind: (L, B, T, G, hd)."""
+    """Stacked KV cache for n_layers of one kind: (L, B, T, G, hd);
+    ``device=None`` means ``cuda:0``."""
+    device = resolve_device(device)
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

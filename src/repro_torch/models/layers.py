@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..core.devices import resolve_device
+
 __all__ = ["rms_norm", "rope", "rope_cos_sin", "dense_init"]
 
 
@@ -57,8 +59,10 @@ def dense_init(gen: torch.Generator | None, shape, in_axis=0,
     ``fan_in ** -0.5``, drawn in f32 from ``gen`` and cast to ``dtype``.
 
     ``in_axis`` (an int or a tuple of axes) names the fan-in axes of
-    ``shape``.  On the ``meta`` device nothing is drawn.
+    ``shape``.  On the ``meta`` device nothing is drawn; ``device=None``
+    means ``cuda:0``.
     """
+    device = resolve_device(device)
     fan_in = (shape[in_axis] if isinstance(in_axis, int)
               else math.prod(shape[a] for a in in_axis))
     std = (1.0 / max(1, fan_in)) ** 0.5

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.devices import resolve_device
 from .layers import dense_init
 
 __all__ = ["init_mlp_params", "mlp"]
@@ -16,7 +17,9 @@ __all__ = ["init_mlp_params", "mlp"]
 def init_mlp_params(gen, d_model: int, d_ff: int, act: str,
                     dtype=torch.bfloat16, device=None, lead=()) -> dict:
     """The block's weights, each with the leading (stacking) axes
-    ``lead``."""
+    ``lead``; ``device=None`` means ``cuda:0``."""
+    device = resolve_device(device)
+
     def w(shape):
         return dense_init(gen, lead + shape, len(lead), dtype, device)
 

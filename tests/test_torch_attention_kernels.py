@@ -193,3 +193,53 @@ def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
     assert kd.launch_counts["kv_dequant_decode_attention"] == 1
     want = ref.kv_dequant_decode_attention_ref(q, *cache, pos)
     torch.testing.assert_close(got, want, **TOL)
+
+
+def bf16_bound(got, want, v):
+    """The bf16 check: |got - want| <= 2^-8·max|v| + one bf16 step of
+    max(|got|, |want|).  The kernel rounds unnormalised probabilities to
+    bf16 and the plain version normalised ones: each side is within 2^-9
+    relative of the exact p, so P·V differs by at most 2^-8·max|v| (the
+    probabilities sum to 1); the outputs then round to bf16 apart by up to
+    one step (2^-7 relative)."""
+    got, want = got.float(), want.float()
+    lim = 2.0 ** -8 * v.float().abs().max() + \
+        2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+    return bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,G,hd", [(2, 128, 4, 2, 16),
+                                         (1, 200, 4, 1, 32),
+                                         (2, 96, 8, 8, 64),
+                                         (1, 1000, 8, 2, 128),
+                                         (1, 77, 2, 1, 128)])
+def test_cuda_flash_kernel_bf16_gqa_matches_its_plain_version(card, B, S, Hq,
+                                                              G, hd):
+    """bf16 q/k/v in the model's layout (slices of one projection, kv head
+    h // rep), ragged S included, on the tensor cores."""
+    g = torch.Generator(device=card).manual_seed(S + hd)
+    qkv = torch.randn((B, S, Hq + 2 * G, hd), generator=g,
+                      device=card).bfloat16()
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + G], qkv[:, :, Hq + G:]
+    fa.reset_launch_counts()
+    got = fa.flash_attention_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bf16_bound(got, ref.flash_attention_gqa_ref(q, k, v), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,hd,causal", [(4, 256, 32, True),
+                                            (2, 333, 64, False),
+                                            (1, 512, 128, True)])
+def test_cuda_flash_kernel_f32_on_odd_strides(card, BH, S, hd, causal):
+    """f32 q/k/v whose strides are not 16-byte multiples (the kernel's
+    element-copy path) against the plain version."""
+    g = torch.Generator(device=card).manual_seed(BH + S)
+    x = torch.randn((BH, S, 3 * hd + 1), generator=g, device=card)
+    q, k, v = x[:, :, :hd], x[:, :, hd:2 * hd], x[:, :, 2 * hd:3 * hd]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal),
+                               **TOL)

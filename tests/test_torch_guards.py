@@ -24,7 +24,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "chip_tiles.py"]
 
 
 def _imported_roots(path: Path):
@@ -81,6 +81,34 @@ def test_missing_gpu_raises_unless_the_cpu_was_asked_for(monkeypatch):
     with _cpu_sim(circuit) as sim:           # the CPU, asked for, runs
         state = sim.run().statevector()
     assert abs(abs(state[0]) ** 2 - 0.5) < 1e-3
+
+
+def _model_entry_points():
+    """The model builders exported by name, each as fn(device=...)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import attention, layers, mlp
+    cfg = reduced_config(get_config("qwen3-4b"))
+    return {
+        "init_cache": lambda device=None: attention.init_cache(
+            cfg, 2, 16, 2, device=device)["k"],
+        "init_attn_params": lambda device=None: attention.init_attn_params(
+            None, cfg, device=device)["wq"],
+        "init_mlp_params": lambda device=None: mlp.init_mlp_params(
+            None, 64, 128, "silu", device=device)["w_in"],
+        "dense_init": lambda device=None: layers.dense_init(
+            None, (8, 4), device=device),
+    }
+
+
+@pytest.mark.parametrize("name", ["init_cache", "init_attn_params",
+                                  "init_mlp_params", "dense_init"])
+def test_model_entry_points_default_to_the_card(monkeypatch, name):
+    fn = _model_entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    assert fn(device=CPU).device == CPU       # the CPU, asked for, builds
+    assert fn(device="meta").device.type == "meta"
 
 
 def test_stage_pipeline_defaults_to_the_card(monkeypatch):
