@@ -11,7 +11,8 @@ Phases, in order (any failure exits non-zero and prints no result):
                   flash_f32_kernel) print its ptxas registers and spills
                   (kernel_ptxas) and its HMMA/HGMMA count in the SASS of
                   the built library (kernel_sass, cuobjdump -sass); a count
-                  of 0 fails.
+                  of 0 fails.  kernel_ptxas lines too for B1/B6's ring
+                  body at K <= 32 (gemm_planes_ring_kernel).
 2. kernels      — hold each kernel against its plain PyTorch version on the
                   card, at the main paths' shapes and at small (for the
                   codec: ragged) shapes, and time kernel, plain version and
@@ -24,7 +25,12 @@ Phases, in order (any failure exits non-zero and prints no result):
                   encode/decode, gemm_planes (K = 4 ... 128; split TF32 on
                   the tensor cores for K >= 64), gemm_planes_mid,
                   diag_apply (within 1e-4 on unit-scale inputs) and the
-                  packing kernels (bit for bit).
+                  packing kernels (bit for bit).  gemm_planes_batch and
+                  gemm_planes at K <= 32 (the ring body) are held within
+                  rtol 1e-5, atol 1e-6, also at every K in 2 ... 32 with
+                  three lanes and B at lane stride 0, R*K past a ragged
+                  tile, R*K not a multiple of 4 and planes off 16-byte
+                  alignment.
                   Then the attention kernels (within 2e-4 of their plain
                   versions on f32 inputs, as the Pallas tests hold them):
                   flash_attention at the TPU tests' shapes, causal and
@@ -34,11 +40,13 @@ Phases, in order (any failure exits non-zero and prints no result):
                   kv_dequant_decode_attention at the TPU tests' shapes, a
                   ragged T, pos 0, a mask that crosses pos inside a block,
                   rep 48 (MQA) and the serving layout as views of a stacked
-                  cache; timed at (BH, S, hd) = (128, 2048, 128) causal f32
-                  and in bf16 at the serve shape (B 8, S 2,048, Hq 32, G 8;
-                  library: F.scaled_dot_product_attention, f32 with TF32
-                  off, bf16 on expanded kv heads), B11 at the serve
-                  shape.
+                  cache (bf16 q: K/V and P rounded to bf16, held to 2^-8
+                  max|v| + one bf16 step); timed at (BH, S, hd) = (128,
+                  2048, 128) causal f32 and in bf16 at the serve shape (B
+                  8, S 2,048, Hq 32, G 8; library:
+                  F.scaled_dot_product_attention, f32 with TF32 off, bf16
+                  on expanded kv heads), B11 at the serve
+                  shape with an f32 and a bf16 q.
 3. ops          — the kernels/ops.py entry points on one group plane of
                   2^22 amplitudes: quantize_block -> pack_codes ->
                   unpack_codes -> dequantize_block and pack_sign_bitmap ->
@@ -215,6 +223,9 @@ TENSOR_CORE_KERNELS = {
     "gate_apply": ("gemm_planes_tc_kernel",),
     "attention": ("flash_bf16_kernel", "flash_f32_kernel"),
 }
+#: source -> symbols of the CUDA-core kernels whose registers and spills
+#: are printed too (B1/B6's ring body at K <= 32)
+PTXAS_KERNELS = {"gate_apply": ("gemm_planes_ring_kernel",)}
 
 
 def ptxas_lines(text: str) -> dict[str, list[str]]:
@@ -234,14 +245,16 @@ def ptxas_lines(text: str) -> dict[str, list[str]]:
 
 def tensor_core_check(build, log) -> None:
     """For each redesigned kernel instantiation: its ``ptxas -v`` registers
-    and spills, and the number of HMMA / HGMMA instructions in its SASS
-    (``cuobjdump -sass`` of the built library); 0 fails the smoke."""
+    and spills, and for the tensor-core ones the number of HMMA / HGMMA
+    instructions in its SASS (``cuobjdump -sass`` of the built library); 0
+    fails the smoke."""
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name, symbols in TENSOR_CORE_KERNELS.items():
+        shown = symbols + PTXAS_KERNELS.get(name, ())
         for fn, lines in ptxas_lines(log[name][1]).items():
-            if any(sym in fn for sym in symbols):
+            if any(sym in fn for sym in shown):
                 print(f"kernel_ptxas {fn} " + " | ".join(lines), flush=True)
         lib = build._target(name)[1]
         out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -271,10 +284,11 @@ def tensor_core_check(build, log) -> None:
 # -- phase 2: gemm_planes_batch against its plain version ---------------------
 
 def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
-              timed: bool) -> dict:
+              timed: bool, offset: int = 0) -> dict:
     """One shape of gemm_planes_batch on the card: agreement with the
     plain version, and (when ``timed``) kernel / plain / library times
-    beside the bound."""
+    beside the bound.  ``offset`` floats shift the planes off 16-byte
+    alignment (the kernel's 4-byte copy path)."""
     import numpy as np
     import torch
     from repro_torch.kernels.gate_apply import gemm_planes_batch
@@ -282,7 +296,8 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(seed)
-    planes = torch.randn((L, 2, R * K), generator=g, device=dev)
+    planes = torch.randn((L * 2 * R * K + offset,), generator=g,
+                         device=dev)[offset:].reshape(L, 2, R * K)
     ar = planes[:, 0].reshape(L, R, K)           # lane stride 2RK, as a wave
     ai = planes[:, 1].reshape(L, R, K)
     U = torch.randn((1 if broadcast else L, 2, K, K), generator=g,
@@ -297,7 +312,7 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
     ok = (torch.allclose(cr, rr, rtol=RTOL, atol=ATOL)
           and torch.allclose(ci, ri, rtol=RTOL, atol=ATOL))
     out = {"L": L, "R": R, "K": K, "broadcast": broadcast,
-           "max_abs_err": err, "ok": bool(ok)}
+           "offset": offset, "max_abs_err": err, "ok": bool(ok)}
     if not timed:
         return out
     n_b = 1 if broadcast else L
@@ -316,6 +331,15 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
     return out
 
 
+#: (L, R, K, broadcast, offset) of the ring body (K <= 32): three lanes
+#: with B at lane stride 0 and R*K past 2^22 by a ragged tile, so every
+#: block walks several tiles of the ring; R*K not a multiple of 4 and
+#: planes one float off 16-byte alignment; one lane of a few rows
+RING_SHAPES = [s for K in (2, 4, 8, 16, 32)
+               for s in ((3, (1 << 22) // K + 3, K, True, 0),
+                         (2, 1001, K, False, 1), (1, 777, K, True, 0))]
+
+
 def kernel_phase() -> dict:
     main_shapes = [(2, (1 << 22) // K, K) for K in (16, 32)]
     small = [(3, 5, 2, False), (1, 7, 4, True), (2, 64, 8, False),
@@ -326,12 +350,16 @@ def kernel_phase() -> dict:
         cases.append(gemm_case(L, R, K, True, seed=i, timed=True))
     for i, (L, R, K, bc) in enumerate(small):
         cases.append(gemm_case(L, R, K, bc, seed=100 + i, timed=False))
+    for i, (L, R, K, bc, off) in enumerate(RING_SHAPES):
+        cases.append(gemm_case(L, R, K, bc, seed=400 + i, timed=False,
+                               offset=off))
     for c in cases:
         print("kernel_check gemm_planes_batch " + json.dumps(c), flush=True)
         if not c["ok"]:
             fail(f"gemm_planes_batch disagrees with its plain version at "
-                 f"L={c['L']} R={c['R']} K={c['K']}: max abs err "
-                 f"{c['max_abs_err']:.3e} (rtol {RTOL}, atol {ATOL})")
+                 f"L={c['L']} R={c['R']} K={c['K']} offset={c['offset']}: "
+                 f"max abs err {c['max_abs_err']:.3e} (rtol {RTOL}, atol "
+                 f"{ATOL})")
     return {"gemm_planes_batch": cases}
 
 
@@ -491,19 +519,25 @@ def codec_phase() -> dict:
 
 # -- phase 2: the single-group gate kernels against their plain versions ------
 
-def unit_planes(shape, seed: int):
-    """Two unit-scale f32 planes of ``shape`` on the card."""
+def unit_planes(shape, seed: int, offset: int = 0):
+    """Two unit-scale f32 planes of ``shape`` on the card, ``offset``
+    floats past the start of their buffer (1: off 16-byte alignment)."""
+    import math
+
     import torch
     g = torch.Generator(device="cuda:0").manual_seed(seed)
-    p = torch.randn((2,) + tuple(shape), generator=g, device="cuda:0")
+    n = math.prod(shape)
+    p = torch.randn((2 * n + offset,), generator=g, device="cuda:0")
+    p = p[offset:].reshape((2,) + tuple(shape))
     return p[0], p[1]
 
 
 def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
                ops: int, library=None, split_tf32: bool = False,
-               **shape) -> dict:
+               tight: bool = False, **shape) -> dict:
     """One call of a gate kernel against its plain version on the same
-    inputs (max abs error <= GATE_ATOL); with ``timed``, kernel / plain /
+    inputs (max abs error <= GATE_ATOL; ``tight``: within RTOL, ATOL, as
+    B1, for B6's ring body at K <= 32); with ``timed``, kernel / plain /
     library times beside the bound, over cold copies of the ``big``
     inputs (``library`` maps an argument tuple to the library call's
     arguments: one PyTorch call, ``torch.matmul`` or a multiply).
@@ -514,7 +548,13 @@ def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
     rr, ri = ref_fn(*args)
     torch.cuda.synchronize()
     err = max(float((cr - rr).abs().max()), float((ci - ri).abs().max()))
-    out = {**shape, "max_abs_err": err, "ok": err <= GATE_ATOL}
+    ok = err <= GATE_ATOL
+    if tight:
+        ok = (torch.allclose(cr, rr, rtol=RTOL, atol=ATOL)
+              and torch.allclose(ci, ri, rtol=RTOL, atol=ATOL))
+    out = {**shape, "max_abs_err": err, "ok": bool(ok)}
+    if tight:
+        out["tolerance"] = [RTOL, ATOL]
     if timed:
         inputs = cold_copies(args, big)
         lib_fn, lib_args = library
@@ -528,16 +568,18 @@ def gate_check(name: str, fn, ref_fn, args, big, timed: bool, nbytes: int,
     print(f"kernel_check {name} " + json.dumps(out), flush=True)
     if not out["ok"]:
         fail(f"{name} disagrees with its plain version at {shape}: max abs "
-             f"err {err:.3e} (bound {GATE_ATOL})")
+             f"err {err:.3e} (bound "
+             f"{f'rtol {RTOL}, atol {ATOL}' if tight else GATE_ATOL})")
     return out
 
 
-def gemm_planes_case(R: int, K: int, seed: int, timed: bool) -> dict:
+def gemm_planes_case(R: int, K: int, seed: int, timed: bool,
+                     offset: int = 0) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import gate_apply as ga
     from repro_torch.kernels import ref
-    ar, ai = unit_planes((R, K), seed)
+    ar, ai = unit_planes((R, K), seed, offset)
     ur, ui = unit_planes((K, K), seed + 1)
     br, bi = ur.T / np.sqrt(K), ui.T / np.sqrt(K)   # U^T, strided views
     return gate_check(
@@ -545,7 +587,7 @@ def gemm_planes_case(R: int, K: int, seed: int, timed: bool) -> dict:
         (ar, ai, br, bi), (0, 1), timed, 4 * (4 * R * K + 2 * K * K),
         8 * R * K * K, (torch.matmul, lambda a: (torch.complex(a[0], a[1]),
                                                   torch.complex(a[2], a[3]))),
-        split_tf32=K >= 64, R=R, K=K)
+        split_tf32=K >= 64, tight=K <= 32, R=R, K=K, offset=offset)
 
 
 def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
@@ -590,6 +632,12 @@ def gate_phase() -> dict:
     b6 += [gemm_planes_case(R, K, seed=20 + i, timed=False)
            for i, (R, K) in enumerate([(7, 2), (33, 8), (5, 64), (3, 128),
                                        (1000, 128), (77, 64), (4097, 64)])]
+    # the ring body: R*K past 2^22 by a ragged tile; R*K not a multiple of
+    # 4 on planes off 16-byte alignment
+    b6 += [gemm_planes_case(R, K, seed=80 + i, timed=False, offset=off)
+           for i, (R, K, off) in enumerate(
+               (r, K, off) for K in (2, 4, 8, 16, 32)
+               for r, off in (((1 << 22) // K + 3, 0), (1001, 1)))]
     b7 = [gemm_planes_mid_case(1, 4, 1 << 20, seed=30, timed=True),
           gemm_planes_mid_case(1, 32, 1 << 17, seed=31, timed=True)]
     b7 += [gemm_planes_mid_case(O, K, I, seed=40 + i, timed=False)
@@ -732,11 +780,14 @@ def flash_gqa_cases(B: int, S: int, Hq: int, G: int, hd: int,
 
 
 def bf16_atol(v) -> float:
-    """The absolute half of the bf16 check, 2^-8 max|v|: the kernel rounds
-    unnormalised probabilities to bf16 and the plain version normalised
-    ones, each within 2^-9 relative of the exact p, so the two P·V differ
-    by at most 2^-8 max|v| (the probabilities sum to 1); the outputs then
-    round to bf16 up to one step (BF16_RTOL) apart."""
+    """The absolute half of the bf16 check of B10 and B11, 2^-8 max|v|:
+    the kernels round unnormalised probabilities to bf16 and the plain
+    versions normalised ones.  Each rounding is within 2^-8 relative of
+    the exact p (bf16's unit roundoff), so the two P·V could differ by
+    2^-7 max|v| (the probabilities sum to 1) if every rounding went the
+    worst way at once; they do not line up, and the check holds them to
+    half that.  B10's outputs then round to bf16 up to one step
+    (BF16_RTOL) apart."""
     return 2.0 ** -8 * float(v.float().abs().max())
 
 
@@ -781,15 +832,19 @@ def kvdq_serving_cases(U: int, B: int, T: int, G: int, rep: int, hd: int,
     stacked = kv_cache_case((U * B, G), T, hd, seed + 1)
     layer = [t.unflatten(0, (U, B))[U // 2] for t in stacked]
     q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0")
+    v = ref.kv_dequant_ref(*layer[3:])
     out = []
     for dt in (torch.float32, torch.bfloat16):
         qd = q.to(dt)
+        bf = dt == torch.bfloat16
         out.append(attn_check(
             "kv_dequant_decode_attention",
             kd.kv_dequant_decode_attention_gqa(qd, *layer, pos),
             ref.kv_dequant_decode_attention_gqa_ref(qd, *layer, pos),
             {"U": U, "B": B, "T": T, "G": G, "rep": rep, "hd": hd,
-             "pos": pos, "q_dtype": str(dt).split(".")[-1]}))
+             "pos": pos, "q_dtype": str(dt).split(".")[-1]},
+            atol=bf16_atol(v) if bf else ATTN_ATOL,
+            rtol=BF16_RTOL if bf else 0.0))
     return out
 
 
@@ -869,23 +924,30 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
     return out
 
 
-def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int) -> dict:
-    """B11 at the serve shape in the serving layout: kernel and plain
-    version beside the bytes bound (every cache byte of the tokens j <=
-    pos read once, q read and the output written once)."""
+def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
+               q_dtype: str = "float32") -> dict:
+    """B11 at the serve shape in the serving layout, q in ``q_dtype``
+    (the serve path's is bfloat16): kernel and plain version beside the
+    bytes bound (every cache byte of the tokens j <= pos read once, q
+    read and the output written once)."""
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda:0").manual_seed(6)
     cache = kv_cache_case((B, G), T, hd, 7)
-    q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0")
+    q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0") \
+        .to(getattr(torch, q_dtype))
+    bf = q_dtype == "bfloat16"
     out = attn_check("kv_dequant_decode_attention",
                      kd.kv_dequant_decode_attention_gqa(q, *cache, pos),
                      ref.kv_dequant_decode_attention_gqa_ref(q, *cache, pos),
                      {"BG": B * G, "T": T, "hd": hd, "rep": rep, "pos": pos,
-                      "timed": True})
+                      "q_dtype": q_dtype, "timed": True},
+                     atol=bf16_atol(ref.kv_dequant_ref(*cache[3:]))
+                     if bf else ATTN_ATOL, rtol=BF16_RTOL if bf else 0.0)
     live = min(T, pos + 1)
-    nbytes = 2 * B * G * live * (hd + hd // 8 + 4) + 2 * 4 * B * G * rep * hd
+    nbytes = (2 * B * G * live * (hd + hd // 8 + 4)
+              + (q.element_size() + 4) * B * G * rep * hd)
     flops = 4 * B * G * rep * live * hd
     b, by = bound(nbytes, flops)
     inputs = cold_copies((q, *cache, pos), (1, 2, 3, 4, 5, 6))
@@ -915,8 +977,9 @@ def attention_phase() -> dict:
     b11 += kvdq_serving_cases(3, 2, 600, 4, 4, 128, 517, seed=320)
     b10.append(flash_timed(128, 2048, 128))
     b10.append(flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 32, 8, 128))
-    b11.append(kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
-                          SERVE_MAX_LEN - 1))
+    b11 += [kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
+                       SERVE_MAX_LEN - 1, dt) for dt in ("float32",
+                                                         "bfloat16")]
     return {"flash_attention": b10, "kv_dequant_decode_attention": b11}
 
 
@@ -1384,7 +1447,8 @@ KERNELS = {
                         {"dtype": "bfloat16"}),
     "kv_dequant_decode_attention": (
         "src/repro_torch/csrc/attention.cu",
-        "src/repro/kernels/kv_dequant_attention.py:98", "serve", {}),
+        "src/repro/kernels/kv_dequant_attention.py:98", "serve",
+        {"q_dtype": "float32"}),
 }
 
 

@@ -58,6 +58,12 @@
 // codes a 32-bit load, tokens in flight unrolled by 4) and sums the lane
 // groups through shared memory.  The dequantize uses __fmul_rn/__fsub_rn so
 // nvcc cannot fuse it into an FMA the plain version does not do.
+// Rounding follows q's type, as repro's serving decode does (the cache
+// dequantizes to the model's dtype, dequantize_kv; _gqa_out rounds the
+// probabilities to v's): for a bf16 q each dequantized K and V element is
+// rounded to bf16 (nearest even) before its products, and p = exp(s - m)
+// to bf16 before P·V, unnormalised, divided by the f32 sum of the unrounded
+// p; the sums stay f32.  For an f32 q nothing is rounded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -693,6 +699,16 @@ __device__ __forceinline__ float dequant1(uint32_t c, uint32_t neg, float sc,
   return neg ? -mag : mag;
 }
 
+// x in the cache's dequantized type: T's rounding, back in f32
+template <typename T>
+__device__ __forceinline__ float round_as(float x);
+template <>
+__device__ __forceinline__ float round_as<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __host__ __device__ constexpr int kvdq_smem_floats(int rep, int hd) {
   return rep * hd + rep * kChunk + kDThreads * 4 * kRB + 2 * rep;
 }
@@ -749,8 +765,9 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
           float kv[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            kv[u] = dequant1((words[w] >> (8 * u)) & 255u,
-                             (sw[c] >> (4 * w + u)) & 1u, sc, step);
+            kv[u] = round_as<TQ>(dequant1((words[w] >> (8 * u)) & 255u,
+                                          (sw[c] >> (4 * w + u)) & 1u, sc,
+                                          step));
           const int d = 16 * c + 4 * w;
 #pragma unroll
           for (int rr = 0; rr < kRB; ++rr) {
@@ -784,7 +801,7 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
     float sum = 0.f;
     for (int t = wl; t < kChunk; t += 32) {
       const float p = expf(row[t] - mx);
-      row[t] = p;
+      row[t] = round_as<TQ>(p);
       sum += p;
     }
     for (int off = 16; off > 0; off >>= 1)
@@ -817,7 +834,8 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
       float vv[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        vv[u] = dequant1((c4 >> (8 * u)) & 255u, (s4 >> u) & 1u, sc, step);
+        vv[u] = round_as<TQ>(
+            dequant1((c4 >> (8 * u)) & 255u, (s4 >> u) & 1u, sc, step));
 #pragma unroll
       for (int rr = 0; rr < kRB; ++rr) {
         if (r0 + rr < rep) {

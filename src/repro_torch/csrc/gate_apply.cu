@@ -1,8 +1,8 @@
 // Complex products on separate re/im f32 planes, for Hopper (sm_90a): the
 // stage compute's gate kernels.
 //
-// gemm_planes_batch_kernel replaces two TPU kernels of
-// repro/kernels/gate_apply.py:
+// gemm_planes_ring_kernel (K <= 32) and gemm_planes_wide_kernel (K >= 64)
+// replace two TPU kernels of repro/kernels/gate_apply.py:
 //   gemm_planes_batch (kernel body _gemm_batch_kernel, pl.pallas_call at
 //     :112) — for every lane l of an (L, R, K) row stack A and per-lane
 //     B = U^T planes (L, K, K), K = 2^k, 2 <= K <= 128:
@@ -10,36 +10,51 @@
 //       Cr[l] = Ar[l] Br[l] - Ai[l] Bi[l],   Ci[l] = Ar[l] Bi[l] + Ai[l] Br[l]
 //
 //   gemm_planes (_gemm_kernel, :69) — the same with one B for all rows:
-//     the entry gemm_planes_f32 launches this body with L = 1.
+//     the entry gemm_planes_f32 launches these bodies with L = 1.
 //
-// What bounds it: HBM bytes.  Every amplitude is read once and written once
-// (16 bytes of planes in and out per complex amplitude) for 4K FMAs, so at
-// the main path's K <= 32 the kernel does about 16 FLOP per byte, far below
-// the ~20 FLOP/byte where the card's f32 FMA rate (67 TFLOP/s) would take
-// over from its 3.35 TB/s.  Sums are plain f32 FMAs on the CUDA cores: the
-// kernel waits on HBM, so the tensor cores would not shorten it.
+// What bounds it at the main path's K <= 32: HBM bytes, closely followed by
+// the f32 FMAs.  Every amplitude is read once and written once (16 bytes of
+// planes in and out per complex amplitude) for 4K FMAs: at K = 32 and
+// R K = 2^22 that is 0.020 ms of bytes at 3.35 TB/s against 0.016 ms of
+// FMAs at 67 TFLOP/s.  Done one after the other the two phases add up, so
+// the kernel has to keep the HBM stream and the FMAs busy at once.  Sums
+// stay plain f32 FMAs on the CUDA cores, in the plain version's order per
+// column (the 1e-6 absolute agreement with it does not survive even a
+// reordered f32 sum, let alone split TF32 on the tensor cores).
 //
-// What the design does about it:
-//   * one block owns a run of row tiles of one lane (blockIdx.y = lane) and
-//     loads that lane's two K x K B planes into shared memory once, from any
-//     strides — a single-lane wave passes B with lane stride 0, so the
-//     broadcast over the wave is never materialised;
-//   * A tiles (kTile elements of each plane) are read with coalesced float4
-//     loads into shared memory, and C is written coalesced: the whole
-//     plane stream moves at full-sector efficiency, once;
-//   * each thread owns one output column j (kThreads is a multiple of K) and,
-//     for K <= 32, keeps column j of both B planes in registers, so the inner
-//     loop reads only A from shared memory, as broadcast float4 loads: the
-//     shared-memory traffic stays well under the FMA rate and the kernel
-//     waits on HBM, not on the SM.
+// What gemm_planes_ring_kernel does about it:
+//   * persistent blocks, as many as fit on the SMs (occupancy API), spread
+//     over the lanes (blockIdx.y = lane); each loads its lane's two K x K B
+//     planes once, from any strides — a single-lane wave passes B with lane
+//     stride 0, so the broadcast over the wave is never materialised;
+//   * the block walks its lane's A tiles (kRingTile elements of each plane)
+//     with a stride of the grid, through a ring of kRingStages tiles in
+//     shared memory filled by cp.async: 16-byte cp.async.cg where the
+//     planes are 16-byte aligned (a ragged last chunk zero-fills by
+//     src-size), 4-byte cp.async.ca where they are not (vec4 = 0).  While
+//     the FMAs run on tile t, the next tiles are in flight; one block
+//     barrier a tile both publishes the arrived tile and frees the stage
+//     the next copy reuses;
+//   * each thread owns one output column j (kThreads is a multiple of K)
+//     and keeps column j of both B planes in registers, so the inner loop
+//     reads only A from shared memory, as broadcast float4 loads, and
+//     writes C coalesced straight from registers.
+// Measured (PERF.md §6): at K <= 16 the stream sets the pace; at K = 32 the
+// FMA loop alone (no copies, no stores) takes as long as the whole kernel,
+// ~40% of the FMA peak, with a broadcast float4 of A read from shared
+// memory for every 8 FMAs.
 //
-// gemm_planes_tc_kernel is gemm_planes (B6) at K >= 64, where the body
-// above runs out of registers for column j of B and reads two floats of B
-// from shared memory for every four FMAs: the SM's shared-memory port, not
-// HBM, set its pace (17% of its bound at K = 128).  At K = 128 the product
-// does 8 R K^2 operations over 16 R K bytes, 64 FLOP a byte: above the
-// ~20 where the f32 FMA rate takes over from HBM.  So this kernel moves the
-// products to the tensor cores and keeps f32 accuracy with split TF32:
+// gemm_planes_wide_kernel is B1 at K >= 64 (and B6 there when its planes
+// are not 16-byte aligned): column j of B no longer fits in registers, so
+// B stays in shared memory and each tile is loaded, then computed.
+//
+// gemm_planes_tc_kernel is gemm_planes (B6) at K >= 64, where the wide body
+// reads two floats of B from shared memory for every four FMAs: the SM's
+// shared-memory port, not HBM, set its pace (17% of its bound at K = 128).
+// At K = 128 the product does 8 R K^2 operations over 16 R K bytes, 64
+// FLOP a byte: above the ~20 where the f32 FMA rate takes over from HBM.
+// So this kernel moves the products to the tensor cores and keeps f32
+// accuracy with split TF32:
 //   * each operand is split as x = big + small, both TF32 (round to nearest,
 //     ties away, on the bit pattern: big = (bits + 2^12) & ~(2^13 - 1));
 //     a real product is three mma.sync.m16n8k8 TF32 with f32 sums,
@@ -84,19 +99,201 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// -- gemm_planes_batch at K <= 32: A streamed through a ring of tiles --------
+
+// Elements of each plane a tile, tiles in the ring, and the most blocks an
+// SM (0: as many as fit).  The values below timed fastest at R K = 2^22 on
+// one H100 among those chip_tiles.py tries (PERF.md §6).
+constexpr int kRingTile = 2048, kRingStages = 2, kRingBlocksSM = 0;  // ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared; only the first `bytes` are read, the
+// rest zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_planes_ring_kernel(const float* __restrict__ ar,
+                        const float* __restrict__ ai, long long a_lane,
+                        const float* __restrict__ br,
+                        const float* __restrict__ bi, long long b_lane,
+                        long long b_row, long long b_col,
+                        float* __restrict__ cr, float* __restrict__ ci,
+                        long long rows, int vec4) {
+  constexpr int T = kRingTile, S = kRingStages;
+  static_assert(K <= 32 && kThreads % K == 0,
+                "a thread owns one column of B, in registers");
+  static_assert(T % kThreads == 0 && S >= 2, "whole tiles, two stages");
+  extern __shared__ __align__(16) float smem[];
+  float* sbr = smem;
+  float* sbi = sbr + K * K;
+  float* ring = sbi + K * K;  // stage s: T of Ar, then T of Ai, at 2 T s
+
+  const int tid = threadIdx.x;
+  const long long lane = blockIdx.y;
+  const float* lbr = br + lane * b_lane;
+  const float* lbi = bi + lane * b_lane;
+  for (int e = tid; e < K * K; e += kThreads) {
+    const int r = e / K, c = e % K;
+    sbr[e] = lbr[r * b_row + c * b_col];
+    sbi[e] = lbi[r * b_row + c * b_col];
+  }
+  __syncthreads();
+  const int j = tid % K;  // the output column this thread owns
+  float rbr[K], rbi[K];
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    rbr[kk] = sbr[kk * K + j];
+    rbi[kk] = sbi[kk * K + j];
+  }
+
+  const long long n = rows * K;  // elements of one plane of this lane
+  const float* lar = ar + lane * a_lane;
+  const float* lai = ai + lane * a_lane;
+  float* lcr = cr + lane * n;
+  float* lci = ci + lane * n;
+  const long long tiles = (n + T - 1) / T;
+  const int mine = blockIdx.x < tiles
+      ? (int)((tiles - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  auto tile_base = [&](int i) {
+    return ((long long)blockIdx.x + (long long)i * gridDim.x) * T;
+  };
+
+  // this block's tile i into stage i % S, as one commit group (empty past
+  // the last tile, so that every wait below counts the same groups)
+  auto copy_tile = [&](int i) {
+    if (i < mine) {
+      const long long base = tile_base(i);
+      const int cnt = (int)(n - base < T ? n - base : T);
+      float* dr = ring + (i % S) * 2 * T;
+      float* di = dr + T;
+      if (vec4) {
+        for (int e = 4 * tid; e < cnt; e += 4 * kThreads) {
+          const int bytes = 4 * (cnt - e < 4 ? cnt - e : 4);
+          cp_async16(dr + e, lar + base + e, bytes);
+          cp_async16(di + e, lai + base + e, bytes);
+        }
+      } else {
+        for (int e = tid; e < cnt; e += kThreads) {
+          cp_async4(dr + e, lar + base + e);
+          cp_async4(di + e, lai + base + e);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) copy_tile(i);
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<S - 2>();  // this thread's copies of tile i have landed
+    __syncthreads();         // everyone's have; stage (i - 1) % S is free
+    copy_tile(i + S - 1);
+    const long long base = tile_base(i);
+    const int cnt = (int)(n - base < T ? n - base : T);
+    const float* sar = ring + (i % S) * 2 * T;
+    const float* sai = sar + T;
+    // e % K == j for every e this thread visits (kThreads % K == 0)
+    for (int e = tid; e < cnt; e += kThreads) {
+      const float* rowr = sar + (e - j);
+      const float* rowi = sai + (e - j);
+      // the plain version's f32 FMAs in its order: four sums over
+      // k = 0 .. K - 1, then rr - ii and ri + ir
+      float rr = 0.f, ii = 0.f, ri = 0.f, ir = 0.f;
+      auto step = [&](float a_r, float a_i, int kk) {
+        rr = fmaf(a_r, rbr[kk], rr);
+        ii = fmaf(a_i, rbi[kk], ii);
+        ri = fmaf(a_r, rbi[kk], ri);
+        ir = fmaf(a_i, rbr[kk], ir);
+      };
+      if constexpr (K >= 4) {
+        const float4* r4 = reinterpret_cast<const float4*>(rowr);
+        const float4* i4 = reinterpret_cast<const float4*>(rowi);
+#pragma unroll
+        for (int q = 0; q < K / 4; ++q) {
+          const float4 x = r4[q], y = i4[q];
+          step(x.x, y.x, 4 * q + 0);
+          step(x.y, y.y, 4 * q + 1);
+          step(x.z, y.z, 4 * q + 2);
+          step(x.w, y.w, 4 * q + 3);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) step(rowr[kk], rowi[kk], kk);
+      }
+      lcr[base + e] = rr - ii;
+      lci[base + e] = ri + ir;
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch_ring(const float* ar, const float* ai, long long a_lane,
+                        const float* br, const float* bi, long long b_lane,
+                        long long b_row, long long b_col, float* cr,
+                        float* ci, long long lanes, long long rows, int vec4,
+                        cudaStream_t stream) {
+  auto kernel = gemm_planes_ring_kernel<K>;
+  const int smem =
+      (2 * K * K + 2 * kRingStages * kRingTile) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (kRingBlocksSM > 0 && per_sm > kRingBlocksSM) per_sm = kRingBlocksSM;
+  const long long tiles = (rows * K + kRingTile - 1) / kRingTile;
+  long long per_lane = (long long)sms * per_sm / lanes;
+  if (per_lane < 1) per_lane = 1;
+  if (per_lane > tiles) per_lane = tiles;
+  kernel<<<dim3((unsigned)per_lane, (unsigned)lanes), kThreads, smem,
+           stream>>>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci,
+                     rows, vec4);
+  return cudaGetLastError();
+}
+
+// -- gemm_planes_batch at K >= 64: B in shared memory ------------------------
+
 constexpr int kTile = 4096;  // elements of one plane per tile (16 KiB)
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-gemm_planes_batch_kernel(const float* __restrict__ ar,
-                         const float* __restrict__ ai, long long a_lane,
-                         const float* __restrict__ br,
-                         const float* __restrict__ bi, long long b_lane,
-                         long long b_row, long long b_col,
-                         float* __restrict__ cr, float* __restrict__ ci,
-                         long long rows, int vec4) {
-  static_assert(kThreads % K == 0, "a thread must own one column");
-  constexpr bool kRegB = K <= 32;
+gemm_planes_wide_kernel(const float* __restrict__ ar,
+                        const float* __restrict__ ai, long long a_lane,
+                        const float* __restrict__ br,
+                        const float* __restrict__ bi, long long b_lane,
+                        long long b_row, long long b_col,
+                        float* __restrict__ cr, float* __restrict__ ci,
+                        long long rows, int vec4) {
+  static_assert(K >= 64 && kThreads % K == 0, "a thread must own one column");
   extern __shared__ __align__(16) float smem[];
   float* sar = smem;
   float* sai = sar + kTile;
@@ -114,16 +311,7 @@ gemm_planes_batch_kernel(const float* __restrict__ ar,
   __syncthreads();
 
   const int j = threadIdx.x % K;  // the output column this thread owns
-  float rbr[kRegB ? K : 1], rbi[kRegB ? K : 1];
-  if constexpr (kRegB) {
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) {
-      rbr[kk] = sbr[kk * K + j];
-      rbi[kk] = sbi[kk * K + j];
-    }
-  }
-
-  const long long n = rows * K;  // elements of one plane of this lane
+  const long long n = rows * K;   // elements of one plane of this lane
   const float* lar = ar + lane * a_lane;
   const float* lai = ai + lane * a_lane;
   float* lcr = cr + lane * n;
@@ -152,37 +340,23 @@ gemm_planes_batch_kernel(const float* __restrict__ ar,
 
     // e % K == j for every e this thread visits (kThreads % K == 0)
     for (int e = threadIdx.x; e < cnt; e += kThreads) {
-      const float* rowr = sar + (e - j);
-      const float* rowi = sai + (e - j);
+      const float4* r4 = reinterpret_cast<const float4*>(sar + (e - j));
+      const float4* i4 = reinterpret_cast<const float4*>(sai + (e - j));
       float rr = 0.f, ii = 0.f, ri = 0.f, ir = 0.f;
       auto step = [&](float a_r, float a_i, int kk) {
-        float b_r, b_i;
-        if constexpr (kRegB) {
-          b_r = rbr[kk];
-          b_i = rbi[kk];
-        } else {
-          b_r = sbr[kk * K + j];
-          b_i = sbi[kk * K + j];
-        }
+        const float b_r = sbr[kk * K + j], b_i = sbi[kk * K + j];
         rr = fmaf(a_r, b_r, rr);
         ii = fmaf(a_i, b_i, ii);
         ri = fmaf(a_r, b_i, ri);
         ir = fmaf(a_i, b_r, ir);
       };
-      if constexpr (K >= 4) {
-        const float4* r4 = reinterpret_cast<const float4*>(rowr);
-        const float4* i4 = reinterpret_cast<const float4*>(rowi);
 #pragma unroll
-        for (int q = 0; q < K / 4; ++q) {
-          const float4 x = r4[q], y = i4[q];
-          step(x.x, y.x, 4 * q + 0);
-          step(x.y, y.y, 4 * q + 1);
-          step(x.z, y.z, 4 * q + 2);
-          step(x.w, y.w, 4 * q + 3);
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < K; ++kk) step(rowr[kk], rowi[kk], kk);
+      for (int q = 0; q < K / 4; ++q) {
+        const float4 x = r4[q], y = i4[q];
+        step(x.x, y.x, 4 * q + 0);
+        step(x.y, y.y, 4 * q + 1);
+        step(x.z, y.z, 4 * q + 2);
+        step(x.w, y.w, 4 * q + 3);
       }
       lcr[base + e] = rr - ii;
       lci[base + e] = ri + ir;
@@ -191,26 +365,23 @@ gemm_planes_batch_kernel(const float* __restrict__ ar,
 }
 
 template <int K>
-cudaError_t launch(const float* ar, const float* ai, long long a_lane,
-                   const float* br, const float* bi, long long b_lane,
-                   long long b_row, long long b_col, float* cr, float* ci,
-                   long long lanes, long long rows, int vec4,
-                   cudaStream_t stream) {
+cudaError_t launch_wide(const float* ar, const float* ai, long long a_lane,
+                        const float* br, const float* bi, long long b_lane,
+                        long long b_row, long long b_col, float* cr,
+                        float* ci, long long lanes, long long rows, int vec4,
+                        cudaStream_t stream) {
   const size_t smem = (2 * (size_t)kTile + 2 * (size_t)K * K) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_planes_batch_kernel<K>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_planes_wide_kernel<K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   const long long tiles = (rows * K + kTile - 1) / kTile;
   const long long cap = 1024;
   dim3 grid((unsigned)(tiles < cap ? tiles : cap), (unsigned)lanes);
-  gemm_planes_batch_kernel<K><<<grid, kThreads, smem, stream>>>(
+  gemm_planes_wide_kernel<K><<<grid, kThreads, smem, stream>>>(
       ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, rows, vec4);
   return cudaGetLastError();
 }
-
 
 // -- gemm_planes at K >= 64: split TF32 on the tensor cores ------------------
 
@@ -560,13 +731,13 @@ int dispatch_gemm(const float* ar, const float* ai, long long a_lane,
                   cudaStream_t s) {
   if (lanes <= 0 || lanes > 65535 || rows <= 0) return (int)cudaErrorInvalidValue;
   switch (k) {
-    case 2: return (int)launch<2>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 4: return (int)launch<4>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 8: return (int)launch<8>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 16: return (int)launch<16>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 32: return (int)launch<32>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 64: return (int)launch<64>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
-    case 128: return (int)launch<128>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 2: return (int)launch_ring<2>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 4: return (int)launch_ring<4>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 8: return (int)launch_ring<8>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 16: return (int)launch_ring<16>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 32: return (int)launch_ring<32>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 64: return (int)launch_wide<64>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
+    case 128: return (int)launch_wide<128>(ar, ai, a_lane, br, bi, b_lane, b_row, b_col, cr, ci, lanes, rows, vec4, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -590,9 +761,10 @@ int gemm_planes_batch_f32(const float* ar, const float* ai, long long a_lane,
                        lanes, rows, k, vec4, static_cast<cudaStream_t>(stream));
 }
 
-// B6: one (R, K) x (K, K) product — B1's body with one lane for K <= 32
-// (bound by bytes), the split-TF32 tensor-core kernel for K >= 64 when A's
-// planes are 16-byte aligned (vec4; C is allocated by the caller, aligned).
+// B6: one (R, K) x (K, K) product — B1's ring body with one lane for
+// K <= 32, the split-TF32 tensor-core kernel for K >= 64 when A's planes
+// are 16-byte aligned (vec4; C is allocated by the caller, aligned), else
+// the wide body.
 int gemm_planes_f32(const float* ar, const float* ai, const float* br,
                     const float* bi, long long b_row, long long b_col,
                     float* cr, float* ci, long long rows, int k, int vec4,

@@ -16,7 +16,11 @@ scale; the kernel dequantizes in registers as ``|x| = exp2(scale -
   (U, B, T, G, ·) cache, read in place -> (B, 1, Hq, hd) f32: the attention
   core of ``serving.kvcache.compressed_attention_decode``.
 
-``pos`` is a host int (no device sync).  q may be float32 or bfloat16.  On
+``pos`` is a host int (no device sync).  q may be float32 or bfloat16; for
+a bfloat16 q the dequantized K/V and the probabilities are rounded to
+bfloat16 before their products (sums in f32), as ``repro``'s serving
+decode rounds them (the kernel rounds the unnormalised probabilities, its
+plain version the normalised ones; see ``csrc/attention.cu``).  On
 a CUDA tensor both launch the hand-written Hopper kernel in
 ``csrc/attention.cu`` (see the note there for what bounds it); on a CPU
 tensor they run the plain versions in :mod:`.ref`.  Any other device

@@ -323,18 +323,26 @@ def kv_dequant_ref(codes: torch.Tensor, signs: torch.Tensor,
 def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
                                     signs_v, scale_v, pos) -> torch.Tensor:
     """q (..., rep, hd); cache leaves (..., T, ·) -> (..., rep, hd) f32,
-    attending to cache slots j <= pos."""
+    attending to cache slots j <= pos.  For a bf16 q the dequantized K/V
+    and the probabilities are rounded to bf16 before their products (sums
+    in f32), as ``repro``'s serving decode dequantizes the cache to the
+    model's dtype and ``_gqa_out`` rounds the probabilities to v's."""
     k = kv_dequant_ref(codes_k, signs_k, scale_k)
     v = kv_dequant_ref(codes_v, signs_v, scale_v)
+    p_dtype = None
+    if q.dtype == torch.bfloat16:
+        k, v = k.bfloat16().float(), v.bfloat16().float()
+        p_dtype = torch.bfloat16
     T = codes_k.shape[-2]
     mask = torch.arange(T, device=q.device) <= int(pos)
-    return _attend(q.float(), k, v, mask)
+    return _attend(q.float(), k, v, mask, p_dtype)
 
 
 def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
                                         codes_v, signs_v, scale_v, pos
                                         ) -> torch.Tensor:
-    """q (B, 1, Hq, hd); cache leaves (B, T, G, ·) -> (B, 1, Hq, hd) f32."""
+    """q (B, 1, Hq, hd); cache leaves (B, T, G, ·) -> (B, 1, Hq, hd) f32
+    (bf16 q: rounded as in :func:`kv_dequant_decode_attention_ref`)."""
     B, _, Hq, hd = q.shape
     G = codes_k.shape[2]
     qh = q[:, 0].reshape(B, G, Hq // G, hd)

@@ -3,6 +3,8 @@ kv_dequant_decode_attention) against the JAX package's Pallas kernels in
 interpret mode, on the same numpy-seeded inputs, at rtol = atol = 2e-4 (the
 Pallas tests' bound).  On the CPU the wrappers run their plain versions;
 the `cuda`-marked cases hold the CUDA kernels against those on a card."""
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -19,16 +21,18 @@ def J():
     """The JAX package's side (absent on the card's machine: the tests
     that need it skip there, the `cuda` ones run)."""
     pytest.importorskip("jax")
-    import types
-
+    import jax
     import jax.numpy as jnp
     from repro.kernels.flash_attention import flash_attention
     from repro.kernels.kv_dequant_attention import (
         kv_dequant_decode_attention)
-    from repro.serving.kvcache import quantize_kv
-    return types.SimpleNamespace(jnp=jnp, flash=flash_attention,
+    from repro.models.attention import _gqa_out, _gqa_scores
+    from repro.serving.kvcache import dequantize_kv, quantize_kv
+    return types.SimpleNamespace(jax=jax, jnp=jnp, flash=flash_attention,
                                  kvdq=kv_dequant_decode_attention,
-                                 quantize_kv=quantize_kv)
+                                 quantize_kv=quantize_kv,
+                                 dequantize_kv=dequantize_kv,
+                                 scores=_gqa_scores, out=_gqa_out)
 
 
 def _t(a):
@@ -131,6 +135,115 @@ def test_kvdq_serving_form_reads_views_of_a_stacked_cache(J):
     assert bf.dtype == torch.float32
 
 
+# -- compressed decode with a bf16 q: rounded as repro's serving decode -------
+
+KVDQ_BF16_CASES = [(2, 96, 2, 3, 32, 70), (1, 600, 4, 4, 128, 517),
+                   (2, 64, 1, 8, 64, 63), (2, 1000, 2, 4, 64, 999)]
+
+
+def _serving_inputs(J, B, T, G, rep, hd, pos):
+    """repro's quantize_kv of bf16 normals (B, T, G, hd) for K and V and a
+    bf16 q (B, 1, Hq, hd), seeded; returns the JAX leaves, the port's
+    copies of the six leaves and q."""
+    jnp = J.jnp
+    rng = np.random.default_rng(T + pos)
+    jk, jv = (J.quantize_kv(jnp.asarray(rng.standard_normal((B, T, G, hd)),
+                                        jnp.bfloat16)) for _ in range(2))
+    jq = jnp.asarray(rng.standard_normal((B, 1, G * rep, hd)), jnp.bfloat16)
+    leaves = [_t(d[f]) for d in (jk, jv) for f in ("codes", "signs", "scale")]
+    q = _t(jq.astype(jnp.float32)).bfloat16()
+    return jk, jv, jq, leaves, q
+
+
+def _repro_decode_core(J, jk, jv, jq, pos):
+    """repro's compressed_attention_decode core: dequantize_kv to bf16,
+    _gqa_scores, the j <= pos mask, softmax, _gqa_out (bf16 probabilities
+    and output), as (B, 1, Hq, hd) f32 numpy."""
+    jnp = J.jnp
+    B, _, Hq, hd = jq.shape
+    G = jk["codes"].shape[2]
+    cfg = types.SimpleNamespace(n_kv_heads=G, n_rep=Hq // G)
+    ck, cv = J.dequantize_kv(jk), J.dequantize_kv(jv)
+    s = J.scores(jq, ck, cfg)
+    T = ck.shape[1]
+    s = jnp.where((jnp.arange(T) <= pos)[None, None, None, None], s,
+                  ref.NEG_INF)
+    out = J.out(J.jax.nn.softmax(s, axis=-1), cv, cfg)
+    return np.array(out.astype(jnp.float32)).reshape(B, 1, Hq, hd)
+
+
+def bf16_bound(got, want, v):
+    """The bf16 check of B10 and B11: |got - want| <= 2^-8·max|v| + one
+    bf16 step (2^-7) of max(|got|, |want|).  The kernels round unnormalised
+    probabilities to bf16 and the plain versions normalised ones.  Each
+    rounding is within 2^-8 relative of the exact p (bf16's unit
+    roundoff), so P·V could differ by 2^-7·max|v| if every rounding went
+    the worst way at once; they do not line up, and the check holds the
+    two to half that.  bf16 outputs then round apart by up to one step."""
+    got, want = got.float(), want.float()
+    lim = 2.0 ** -8 * v.float().abs().max() + \
+        2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+    return bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+def test_kvdq_bf16_plain_version_rounds_as_repro(J, B, T, G, rep, hd, pos):
+    """For a bf16 q the plain version rounds the dequantized K/V and the
+    probabilities to bf16, as repro's serving decode does.  Measured on
+    these inputs: rounded to bf16 as repro's output is, it equals repro's
+    core in all but 5 of 4,480 elements (all in one case; max |Δ| 2^-10,
+    one bf16 step at an output of 0.13, where one probability rounds
+    apart: XLA's and torch's softmax differ by an f32 ulp next to a bf16
+    tie), where the f32 version it replaces differs in 2,458 (55%, max
+    |Δ| 2^-8)."""
+    jk, jv, jq, leaves, q = _serving_inputs(J, B, T, G, rep, hd, pos)
+    want = _repro_decode_core(J, jk, jv, jq, pos)
+    got = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos)
+    assert got.dtype == torch.float32
+    new = got.bfloat16().float().numpy()
+    old = kd.kv_dequant_decode_attention_gqa(q.float(), *leaves, pos) \
+        .bfloat16().float().numpy()
+    d_new, d_old = np.abs(new - want), np.abs(old - want)
+    assert int((d_new != 0).sum()) <= 5
+    assert float((d_old != 0).mean()) >= 0.3
+    assert d_new.mean() <= d_old.mean() / 100
+    assert d_new.max() <= 2.0 ** -10
+    v = ref.kv_dequant_ref(*leaves[3:])
+    assert bf16_bound(torch.from_numpy(new), torch.from_numpy(want), v)
+
+
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+def test_emulated_kvdq_bf16_kernel_within_the_bound(J, B, T, G, rep, hd,
+                                                    pos):
+    """The kernel's bf16 arithmetic, emulated: K/V rounded to bf16, f32
+    scores, per 256-token chunk p = exp(s - m_chunk) rounded to bf16
+    unnormalised with the f32 sum of the unrounded p, the chunks combined
+    in f32; against the plain version within bf16_bound (measured here:
+    max |Δ| <= 4.9e-4·max|v|, against the bound's 2^-8·max|v| = 3.9e-3)."""
+    _, _, _, leaves, q = _serving_inputs(J, B, T, G, rep, hd, pos)
+    Hq = G * rep
+    k, v = (ref.kv_dequant_ref(*leaves[i:i + 3]).bfloat16().float()
+            .transpose(1, 2) for i in (0, 3))               # (B, G, T, hd)
+    qh = q[:, 0].float().reshape(B, G, rep, hd)
+    s = qh @ k.transpose(-1, -2) * hd ** -0.5               # (B, G, rep, T)
+    live = min(T, pos + 1)
+    ms, sums, accs = [], [], []
+    for t0 in range(0, live, kd.CHUNK):
+        sc = s[..., t0:min(t0 + kd.CHUNK, live)]
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m)
+        ms.append(m)
+        sums.append(p.sum(-1, keepdim=True))
+        accs.append(p.bfloat16().float() @ v[:, :, t0:t0 + p.shape[-1]])
+    mx = torch.stack(ms).amax(0)
+    w = [torch.exp(m - mx) for m in ms]
+    out = sum(a * x for a, x in zip(accs, w)) / sum(
+        s_ * x for s_, x in zip(sums, w))
+    got = out.reshape(B, 1, Hq, hd)
+    want = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos)
+    assert bf16_bound(got, want, v)
+
+
 def test_wrappers_reject_bad_operands():
     x = torch.zeros((2, 16, 32))
     with pytest.raises(ValueError, match="equal"):
@@ -193,19 +306,6 @@ def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
     assert kd.launch_counts["kv_dequant_decode_attention"] == 1
     want = ref.kv_dequant_decode_attention_ref(q, *cache, pos)
     torch.testing.assert_close(got, want, **TOL)
-
-
-def bf16_bound(got, want, v):
-    """The bf16 check: |got - want| <= 2^-8·max|v| + one bf16 step of
-    max(|got|, |want|).  The kernel rounds unnormalised probabilities to
-    bf16 and the plain version normalised ones: each side is within 2^-9
-    relative of the exact p, so P·V differs by at most 2^-8·max|v| (the
-    probabilities sum to 1); the outputs then round to bf16 apart by up to
-    one step (2^-7 relative)."""
-    got, want = got.float(), want.float()
-    lim = 2.0 ** -8 * v.float().abs().max() + \
-        2.0 ** -7 * torch.maximum(got.abs(), want.abs())
-    return bool(((got - want).abs() <= lim).all())
 
 
 @pytest.mark.cuda

@@ -232,6 +232,72 @@ def test_cuda_gemm_planes_matches_plain_version(cuda_device, R, K):
     torch.testing.assert_close(ci, ri, **GEMM_TOL)
 
 
+# B1 and B6 at K <= 32 run the ring body: f32 FMAs in the order of the
+# plain version's products, held to B1's tolerance
+RING_TOL = dict(rtol=1e-5, atol=1e-6)
+RING_KS = [2, 4, 8, 16, 32]
+
+
+def _card_normals(rng, device, offset, *shape):
+    """f32 normals of ``shape`` on the card, ``offset`` floats into their
+    buffer (1: off 16-byte alignment, the kernel's 4-byte copy path)."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.standard_normal(n + offset)
+                           .astype(np.float32)).to(device)
+    return buf[offset:].reshape(shape)
+
+
+def _ring_rows(K, R):
+    """None: R*K past 2^22 by a ragged tile, so that every block of the
+    persistent grid walks several tiles of the ring."""
+    return (1 << 22) // K + 3 if R is None else R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", RING_KS)
+@pytest.mark.parametrize("L,R,broadcast,offset", [
+    (3, None, True, 0), (2, 1001, False, 1), (1, 777, True, 0),
+    (3, 1001, False, 0)])
+def test_cuda_gemm_planes_batch_ring_matches_plain_version(
+        cuda_device, K, L, R, broadcast, offset):
+    """B1's ring body: one to three lanes, B per lane or at lane stride 0,
+    R*K not a multiple of the tile (nor of 4 at K = 2, R = 1001), planes
+    aligned or one float off."""
+    from repro_torch.kernels.ref import gemm_planes_batch_ref
+    R = _ring_rows(K, R)
+    rng = np.random.default_rng(K * 10 + L)
+    x = _card_normals(rng, cuda_device, offset, L, 2, R, K)
+    ar, ai = x[:, 0], x[:, 1]                     # lane stride 2RK
+    u = torch.from_numpy(_planes(rng, 1 if broadcast else L, K, K)
+                         / np.float32(np.sqrt(K))).to(cuda_device)
+    U = u.expand(2, L, K, K) if broadcast else u  # lane stride 0
+    br, bi = U[0].transpose(1, 2), U[1].transpose(1, 2)
+    cr, ci = _counted(tga, "gemm_planes_batch",
+                      lambda: tga.gemm_planes_batch(ar, ai, br, bi))
+    rr, ri = gemm_planes_batch_ref(ar, ai, br, bi)
+    torch.testing.assert_close(cr, rr, **RING_TOL)
+    torch.testing.assert_close(ci, ri, **RING_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", RING_KS)
+@pytest.mark.parametrize("R,offset", [(None, 0), (1001, 1), (None, 1)])
+def test_cuda_gemm_planes_ring_matches_plain_version(cuda_device, K, R,
+                                                     offset):
+    """B6 at K <= 32 is B1's ring body with one lane."""
+    R = _ring_rows(K, R)
+    rng = np.random.default_rng(K + R)
+    ar, ai = _card_normals(rng, cuda_device, offset, 2, R, K)
+    U = torch.from_numpy(_planes(rng, K, K) / np.float32(np.sqrt(K))) \
+        .to(cuda_device)
+    br, bi = U[0].T, U[1].T
+    cr, ci = _counted(tga, "gemm_planes",
+                      lambda: tga.gemm_planes(ar, ai, br, bi))
+    rr, ri = ref.gemm_planes_ref(ar, ai, br, bi)
+    torch.testing.assert_close(cr, rr, **RING_TOL)
+    torch.testing.assert_close(ci, ri, **RING_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("O,K,I", [(1, 4, 1 << 20), (1, 32, 1 << 17),
                                    (3, 16, 128), (2, 2, 160), (2, 64, 256),

@@ -4,11 +4,14 @@ qk-norm), granite-20b (MQA) and qwen1.5-32b (QKV bias), with the JAX
 weights carried across by ``lm_params_from_numpy`` and the same
 numpy-seeded tokens.
 
-The port's attention cores run in f32 (B10/B11 and their plain versions),
-where the JAX package rounds probabilities and dequantized K/V to bf16, so
-logits agree to bf16 rounding: they are held at 2e-2·max|ref|, the bound
-``tests/test_serving.py`` uses between its own serving modes (measured:
-at most 0.53% on the builders' CPU container).  Codes are held to the
+The port's attention cores round as the JAX package's do for bf16
+inputs (the probabilities, and the dequantized K/V of the compressed
+cache, to bf16), but the bf16 matmuls around them sum in another order,
+so logits agree to bf16 rounding: they are held at 2e-2·max|ref|, the
+bound ``tests/test_serving.py`` uses between its own serving modes
+(measured: at most 0.53% on a CPU container, raw decode
+included, which never reaches B11); compressed decode at 1e-2 (measured
+0.529%, 0.532% while B11 kept K/V and P in f32).  Codes are held to the
 measured quantize_kv tolerance (ROADMAP §C): XLA's ``log2`` is not
 correctly rounded."""
 import dataclasses
@@ -27,6 +30,7 @@ from repro_torch.serving import kvcache as KV
 CPU = torch.device("cpu")
 ARCHS = ["qwen3-4b", "granite-20b", "qwen1.5-32b"]
 LOGIT_RTOL = 2e-2
+DECODE_RTOL = 1e-2             # compressed decode: measured 0.529%
 B, S, STEPS = 2, 20, 4
 # quantize_kv against XLA's on the same input (1,048,576 bf16 normals, 3
 # seeds, builders' CPU container): |dcode| = 1 in 4.96e-5 to 6.29e-5 of
@@ -174,7 +178,7 @@ def test_compressed_decode_matches_repro(J, model):
         tlg, tq = step(tp, {"token": _tok(toks, pos, pos + 1), "cache": tq,
                             "pos": pos})
         jlg = np.asarray(jlg)
-        assert _err(tlg, jlg) < LOGIT_RTOL * np.abs(jlg).max(), (arch, pos)
+        assert _err(tlg, jlg) < DECODE_RTOL * np.abs(jlg).max(), (arch, pos)
 
 
 def test_prefill_decode_matches_own_train_forward(model):
