@@ -11,8 +11,10 @@ Phases, in order (any failure exits non-zero and prints no result):
                   flash_f32_kernel) print its ptxas registers and spills
                   (kernel_ptxas) and its HMMA/HGMMA count in the SASS of
                   the built library (kernel_sass, cuobjdump -sass); a count
-                  of 0 fails.  kernel_ptxas lines too for B1/B6's ring
-                  body at K <= 32 (gemm_planes_ring_kernel).
+                  of 0 fails.  kernel_ptxas lines too for the ring bodies
+                  of B1/B6 and B7 at K <= 32 (gemm_planes_ring_kernel,
+                  gemm_planes_mid_ring_kernel) and for B11
+                  (kvdq_partial_kernel).
 2. kernels      — hold each kernel against its plain PyTorch version on the
                   card, at the main paths' shapes and at small (for the
                   codec: ragged) shapes, and time kernel, plain version and
@@ -24,7 +26,9 @@ Phases, in order (any failure exits non-zero and prints no result):
                   the f32-FMA bound): gemm_planes_batch, the codec's
                   encode/decode, gemm_planes (K = 4 ... 128; split TF32 on
                   the tensor cores for K >= 64), gemm_planes_mid,
-                  diag_apply (within 1e-4 on unit-scale inputs) and the
+                  diag_apply (within 1e-4 on unit-scale inputs; B7 also
+                  at every K in 2 ... 32 with a ragged I, O > 1 with I
+                  below a slab, planes off 16-byte alignment) and the
                   packing kernels (bit for bit).  gemm_planes_batch and
                   gemm_planes at K <= 32 (the ring body) are held within
                   rtol 1e-5, atol 1e-6, also at every K in 2 ... 32 with
@@ -39,14 +43,19 @@ Phases, in order (any failure exits non-zero and prints no result):
                   version, which rounds P to bf16 as repro does);
                   kv_dequant_decode_attention at the TPU tests' shapes, a
                   ragged T, pos 0, a mask that crosses pos inside a block,
-                  rep 48 (MQA) and the serving layout as views of a stacked
-                  cache (bf16 q: K/V and P rounded to bf16, held to 2^-8
-                  max|v| + one bf16 step); timed at (BH, S, hd) = (128,
+                  rep 48 (MQA), the serving layout as views of a stacked
+                  cache, pos just past a tile and a split's edge, and a
+                  cache of every code with both signs at scales from -149
+                  up (bf16 q: K/V and P rounded to bf16, held to 2^-8
+                  max|v| + one bf16 step); B11's dequantize bit for bit
+                  against its previous form over all codes x signs x
+                  scales (kv_dequant_rows_f32); timed at (BH, S, hd) = (128,
                   2048, 128) causal f32 and in bf16 at the serve shape (B
                   8, S 2,048, Hq 32, G 8; library:
                   F.scaled_dot_product_attention, f32 with TF32 off, bf16
                   on expanded kv heads), B11 at the serve
-                  shape with an f32 and a bf16 q.
+                  shape with an f32 and a bf16 q beside its bytes bound
+                  and its MUFU.EX2 bound (sfu_bound_ms).
 3. ops          — the kernels/ops.py entry points on one group plane of
                   2^22 amplitudes: quantize_block -> pack_codes ->
                   unpack_codes -> dequantize_block and pack_sign_bitmap ->
@@ -122,6 +131,8 @@ F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM tensor cores, dense TF32
 BF16_FLOP_PER_S = 989e12         # H100 SXM tensor cores, dense bf16
 SPLIT_TF32 = 3                   # split TF32: three TF32 products a product
+SFU_PER_SM_CLOCK = 16            # MUFU.EX2 results an SM a clock (CC 9.0)
+SMS = 132                        # H100 SXM
 HOST_AHEAD_CYCLES = 100_000_000  # ~50 ms of card clock: the host's queue time
 COLD_BYTES = 128 << 20           # inputs cycled per timing, > 2x the L2
 # the codec kernels against their plain versions (ROADMAP "The pwrel
@@ -139,6 +150,8 @@ GROUP = 1 << GROUP_BITS
 SCHEDULE_RTOL = 1e-5             # execute_schedule vs the batched form
 ATTN_ATOL = 2e-4                 # B10/B11 vs plain, the Pallas tests' bound
 BF16_RTOL = 2.0 ** -7            # one bf16 step: ulp(x) <= 2^-7 |x|
+KV_ORDER_TOL = 2.0 ** -15        # of max|v|: B11 vs its plain version in its
+#                                  own order (see kvdq_check)
 SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 8, 2048, 4096, 32
 SERVE_LOGIT_RTOL = 2e-2          # of max|logits|: tests/test_serving.py's
@@ -224,8 +237,10 @@ TENSOR_CORE_KERNELS = {
     "attention": ("flash_bf16_kernel", "flash_f32_kernel"),
 }
 #: source -> symbols of the CUDA-core kernels whose registers and spills
-#: are printed too (B1/B6's ring body at K <= 32)
-PTXAS_KERNELS = {"gate_apply": ("gemm_planes_ring_kernel",)}
+#: are printed too (the ring bodies of B1/B6 and B7 at K <= 32, B11)
+PTXAS_KERNELS = {"gate_apply": ("gemm_planes_ring_kernel",
+                                "gemm_planes_mid_ring_kernel"),
+                 "attention": ("kvdq_partial_kernel",)}
 
 
 def ptxas_lines(text: str) -> dict[str, list[str]]:
@@ -591,12 +606,12 @@ def gemm_planes_case(R: int, K: int, seed: int, timed: bool,
 
 
 def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
-                         timed: bool) -> dict:
+                         timed: bool, offset: int = 0) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import gate_apply as ga
     from repro_torch.kernels import ref
-    ar, ai = unit_planes((O, K, I), seed)
+    ar, ai = unit_planes((O, K, I), seed, offset)
     ur, ui = unit_planes((K, K), seed + 1)
     ur, ui = ur / np.sqrt(K), ui / np.sqrt(K)
     return gate_check(
@@ -605,7 +620,7 @@ def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
         8 * O * K * K * I, (torch.matmul,
                             lambda a: (torch.complex(a[2], a[3]),
                                        torch.complex(a[0], a[1]))),
-        O=O, K=K, I=I)
+        O=O, K=K, I=I, offset=offset)
 
 
 def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
@@ -620,6 +635,14 @@ def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
         (0, 1), timed, 4 * (4 * R * K + 2 * K), 6 * R * K,
         (torch.mul, lambda a: (torch.complex(a[0], a[1]),
                                torch.complex(a[2], a[3]))), R=R, K=K)
+
+
+#: (O, K, I, offset) of B7's ring body (K <= 32): every block walks many
+#: units and I is ragged; I and planes off 16-byte alignment (4-byte
+#: copies); O > 1 with I below a slab's columns
+MID_RING_SHAPES = [s for K in (2, 4, 8, 16, 32)
+                   for s in ((3, K, (1 << 21) // K + 3, 0), (2, K, 1001, 1),
+                             (5, K, 77, 0), (2, K, 4096, 1))]
 
 
 def gate_phase() -> dict:
@@ -644,6 +667,9 @@ def gate_phase() -> dict:
            for i, (O, K, I) in enumerate([(3, 16, 128), (2, 2, 160),
                                           (2, 64, 256), (1, 128, 384),
                                           (5, 8, 200)])]
+    b7 += [gemm_planes_mid_case(O, K, I, seed=90 + i, timed=False,
+                                offset=off)
+           for i, (O, K, I, off) in enumerate(MID_RING_SHAPES)]
     b8 = [diag_apply_case(GROUP // K, K, seed=50 + K, timed=True)
           for K in (4, 32, 128)]
     b8 += [diag_apply_case(R, K, seed=60 + i, timed=False)
@@ -808,17 +834,163 @@ def kv_cache_case(lead: tuple, T: int, hd: int, seed: int):
 
 
 def kvdq_case(BG: int, T: int, hd: int, rep: int, pos: int,
-              seed: int) -> dict:
+              seed: int, q_dtype: str = "float32", cache=None,
+              label: str | None = None) -> dict:
+    """B11 in the TPU layout against its plain version (see
+    :func:`kvdq_check`)."""
+    import torch
+    from repro_torch.kernels import kv_dequant_attention as kd
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    q = torch.randn((BG, rep, hd), generator=g, device="cuda:0") \
+        .to(getattr(torch, q_dtype))
+    if cache is None:
+        cache = [t.squeeze(2)
+                 for t in kv_cache_case((BG, 1), T, hd, seed + 1)]
+    shape = {"BG": BG, "T": T, "hd": hd, "rep": rep, "pos": pos}
+    if q_dtype == "bfloat16" or label:
+        shape["q_dtype"] = q_dtype
+    if label:
+        shape["case"] = label
+    return kvdq_check(kd.kv_dequant_decode_attention(q, *cache, pos), q,
+                      cache, pos, shape)
+
+
+def kvdq_check(got, q, cache, pos: int, shape: dict) -> dict:
+    """B11's output ``got`` for q (..., rep, hd) and cache leaves (..., T,
+    .) against its plain version: an f32 q within ATTN_ATOL.  A bf16 q
+    twice: within the bf16 bound (:func:`bf16_atol`; the kernel rounds p
+    unnormalised against its running max, the plain version normalised),
+    and against the plain version in the kernel's own order
+    (ref.kv_dequant_decode_attention_tiled_ref on the spans and tiles the
+    kernel launched with) within KV_ORDER_TOL max|v|.  That one differs
+    only by f32 sums in another order (QK^T's on the tensor cores) and the
+    odd p that these send to its other bf16 neighbour: on one H100, 1.5e-8
+    to 1.2e-5 max|v| over the smoke's cases, so the limit is 2.5 times the
+    worst reading and 128 times under the bf16 bound's 2^-8 max|v|.  A
+    wrong 16-dim chunk, tile edge or sign pair moves outputs by about a
+    typical |output| (~4e-3 max|v| at the serve shape) and fails it; so
+    does p rounded where the plain version rounds it at the serve shape
+    and the tile and split edges (4.6e-5 to 2.9e-4 max|v| away)."""
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
     from repro_torch.kernels import ref
+    want = ref.kv_dequant_decode_attention_ref(q, *cache, pos)
+    if q.dtype != torch.bfloat16:
+        return attn_check("kv_dequant_decode_attention", got, want, shape)
+    v = ref.kv_dequant_ref(*cache[3:])
+    out = attn_check("kv_dequant_decode_attention", got, want, shape,
+                     atol=bf16_atol(v), rtol=BF16_RTOL)
+    rep, hd = q.shape[-2:]
+    live = min(cache[0].shape[-2], pos + 1)
+    _, span, tile = kd.grid(q[..., 0, 0].numel(), rep, hd, live, q.dtype,
+                            q.device)
+    tight = ref.kv_dequant_decode_attention_tiled_ref(q, *cache, pos, span,
+                                                      tile)
+    err = float((got.float() - tight).abs().max())
+    lim = KV_ORDER_TOL * float(v.abs().max())
+    line = {**shape, "span": span, "tile": tile, "max_abs_err": err,
+            "atol": lim, "ok": err <= lim,
+            "plain_vs_order": float((want - tight).abs().max())}
+    print("kernel_check kv_dequant_decode_attention_kernel_order "
+          + json.dumps(line), flush=True)
+    if not err <= lim:
+        fail(f"kv_dequant_decode_attention disagrees with its plain version "
+             f"in its own order at {shape}: max abs err {err:.3e} (atol "
+             f"{lim:.3e})")
+    out.update(max_abs_err_kernel_order=err, atol_kernel_order=lim)
+    return out
+
+
+def gqa_as_heads(q, leaves):
+    """B11's serving layout (q (B, 1, Hq, hd), leaves (B, T, G, .)) as the
+    TPU layout's (q (B, G, rep, hd), leaves (B, G, T, .)), as views."""
+    B, _, Hq, hd = q.shape
+    G = leaves[0].shape[2]
+    return (q[:, 0].unflatten(1, (G, Hq // G)),
+            [t.transpose(1, 2) for t in leaves])
+
+
+#: scales of the all-codes cache: the exp2 argument below -126 (exp2f's
+#: subnormal path) down to the bottom of f32, around the fast form's
+#: threshold (-100), and ordinary ones
+KV_SWEEP_SCALES = (-149.0, -140.0, -126.0, -110.5, -100.0, -99.5, -30.0,
+                   -3.0, 0.0, 2.5)
+
+
+def all_codes_cache(BG: int, T: int, hd: int, seed: int):
+    """Six (BG, T, .) cache leaves holding every code 0 ... 255 with both
+    signs: token t of K has codes (t hd + d) mod 256, V the reverse order;
+    sign bytes random; the first half of the tokens ordinary scales, the
+    rest cycling through KV_SWEEP_SCALES (so some tiles take the kernel's
+    fast exp2 and some exp2f's subnormal path)."""
+    import torch
     g = torch.Generator(device="cuda:0").manual_seed(seed)
-    q = torch.randn((BG, rep, hd), generator=g, device="cuda:0")
-    cache = [t.squeeze(2) for t in kv_cache_case((BG, 1), T, hd, seed + 1)]
-    return attn_check("kv_dequant_decode_attention",
-                      kd.kv_dequant_decode_attention(q, *cache, pos),
-                      ref.kv_dequant_decode_attention_ref(q, *cache, pos),
-                      {"BG": BG, "T": T, "hd": hd, "rep": rep, "pos": pos})
+    idx = torch.arange(T * hd, device="cuda:0").reshape(1, T, hd)
+    codes_k = (idx % 256).to(torch.uint8).expand(BG, T, hd).contiguous()
+    codes_v = (255 - idx % 256).to(torch.uint8).expand(BG, T, hd) \
+        .contiguous()
+    sweep = torch.tensor(KV_SWEEP_SCALES, device="cuda:0")
+    half = T // 2
+    leaves = []
+    for codes in (codes_k, codes_v):
+        signs = torch.randint(0, 256, (BG, T, hd // 8), generator=g,
+                              device="cuda:0", dtype=torch.uint8)
+        scale = torch.rand((BG, T, 1), generator=g, device="cuda:0") * 4 - 2
+        scale[:, half:, 0] = sweep[torch.arange(T - half, device="cuda:0")
+                                   % len(KV_SWEEP_SCALES)]
+        leaves += [codes, signs, scale]
+    return leaves
+
+
+def kv_dequant_bitwise() -> dict:
+    """B11's dequantize (dequant4, through kv_dequant_rows_f32 of the built
+    attention library) against the previous form (dequant1 + round_as)
+    bit for bit, for an f32 and a bf16 q, over all 256 codes x both signs
+    x scales from -150 to 130 in steps of 0.25 (and KV_SWEEP_SCALES); and
+    the largest difference from the plain version (ref.kv_dequant_ref, then
+    bf16 for a bf16 q) in units of the last place, which must be 0 too."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ref
+    lib = build.load("attention")
+    fn = lib.kv_dequant_rows_f32
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    scales = torch.cat([torch.arange(-150.0, 130.0, 0.25, device=dev),
+                        torch.tensor(KV_SWEEP_SCALES, device=dev)])
+    n = len(scales)
+    codes = torch.arange(256, device=dev).to(torch.uint8).repeat(2 * n, 1)
+    signs = torch.zeros((2 * n, 32), dtype=torch.uint8, device=dev)
+    signs[n:] = 255                                  # every code negative
+    scale = torch.cat([scales, scales]).reshape(-1, 1).contiguous()
+    out = {"rows": 2 * n, "codes": 256}
+    for dt, bf16 in (("float32", 0), ("bfloat16", 1)):
+        got = torch.empty((2 * n, 256), device=dev)
+        want = torch.empty_like(got)
+        rc = fn(codes.data_ptr(), signs.data_ptr(), scale.data_ptr(),
+                got.data_ptr(), want.data_ptr(), 2 * n, 256, bf16,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"kv_dequant_rows_f32 launch failed (cudaError {rc})")
+        torch.cuda.synchronize()
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        plain = ref.kv_dequant_ref(codes, signs, scale)
+        if bf16:
+            plain = plain.bfloat16().float()
+        ulps = (got.view(torch.int32).long()
+                - plain.view(torch.int32).long()).abs()
+        out[dt] = {"bits_differ": diff, "max_ulp_vs_plain": int(ulps.max())}
+    print("kernel_check kv_dequant_bitwise " + json.dumps(out), flush=True)
+    if any(out[dt]["bits_differ"] or out[dt]["max_ulp_vs_plain"]
+           for dt in ("float32", "bfloat16")):
+        fail(f"B11's dequantize differs from dequant1 + round_as or from "
+             f"the plain version: {out}")
+    return out
 
 
 def kvdq_serving_cases(U: int, B: int, T: int, G: int, rep: int, hd: int,
@@ -827,24 +999,19 @@ def kvdq_serving_cases(U: int, B: int, T: int, G: int, rep: int, hd: int,
     cache, q (B, 1, Hq, hd) in f32 and bf16."""
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
-    from repro_torch.kernels import ref
     g = torch.Generator(device="cuda:0").manual_seed(seed)
     stacked = kv_cache_case((U * B, G), T, hd, seed + 1)
     layer = [t.unflatten(0, (U, B))[U // 2] for t in stacked]
     q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0")
-    v = ref.kv_dequant_ref(*layer[3:])
     out = []
     for dt in (torch.float32, torch.bfloat16):
         qd = q.to(dt)
-        bf = dt == torch.bfloat16
-        out.append(attn_check(
-            "kv_dequant_decode_attention",
-            kd.kv_dequant_decode_attention_gqa(qd, *layer, pos),
-            ref.kv_dequant_decode_attention_gqa_ref(qd, *layer, pos),
+        got = kd.kv_dequant_decode_attention_gqa(qd, *layer, pos)
+        qh, heads = gqa_as_heads(qd, layer)
+        out.append(kvdq_check(
+            got[:, 0].reshape(qh.shape), qh, heads, pos,
             {"U": U, "B": B, "T": T, "G": G, "rep": rep, "hd": hd,
-             "pos": pos, "q_dtype": str(dt).split(".")[-1]},
-            atol=bf16_atol(v) if bf else ATTN_ATOL,
-            rtol=BF16_RTOL if bf else 0.0))
+             "pos": pos, "q_dtype": str(dt).split(".")[-1]}))
     return out
 
 
@@ -937,24 +1104,29 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
     cache = kv_cache_case((B, G), T, hd, 7)
     q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0") \
         .to(getattr(torch, q_dtype))
-    bf = q_dtype == "bfloat16"
-    out = attn_check("kv_dequant_decode_attention",
-                     kd.kv_dequant_decode_attention_gqa(q, *cache, pos),
-                     ref.kv_dequant_decode_attention_gqa_ref(q, *cache, pos),
+    got = kd.kv_dequant_decode_attention_gqa(q, *cache, pos)
+    qh, heads = gqa_as_heads(q, cache)
+    out = kvdq_check(got[:, 0].reshape(qh.shape), qh, heads, pos,
                      {"BG": B * G, "T": T, "hd": hd, "rep": rep, "pos": pos,
-                      "q_dtype": q_dtype, "timed": True},
-                     atol=bf16_atol(ref.kv_dequant_ref(*cache[3:]))
-                     if bf else ATTN_ATOL, rtol=BF16_RTOL if bf else 0.0)
+                      "q_dtype": q_dtype, "timed": True})
     live = min(T, pos + 1)
     nbytes = (2 * B * G * live * (hd + hd // 8 + 4)
               + (q.element_size() + 4) * B * G * rep * hd)
     flops = 4 * B * G * rep * live * hd
     b, by = bound(nbytes, flops)
+    # one MUFU.EX2 a cached element of K and V at the SM clock's maximum
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+        .stdout.split()[0])
+    ex2 = 2 * B * G * live * hd
     inputs = cold_copies((q, *cache, pos), (1, 2, 3, 4, 5, 6))
     out.update(
         ms=cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs),
         plain_ms=cuda_ms(ref.kv_dequant_decode_attention_gqa_ref, inputs),
-        library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+        library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        sfu_bound_ms=ex2 / (SFU_PER_SM_CLOCK * SMS * mhz * 1e6) * 1e3,
+        sfu_clock_mhz=mhz)
     print("kernel_time kv_dequant_decode_attention " + json.dumps(out),
           flush=True)
     return out
@@ -975,6 +1147,21 @@ def attention_phase() -> dict:
                (2, 1000, 64, 4, 999), (2, 1000, 128, 4, 0),
                (3, 700, 32, 2, 300), (1, 512, 128, 48, 400)])]
     b11 += kvdq_serving_cases(3, 2, 600, 4, 4, 128, 517, seed=320)
+    # the split and tile edges (tiles of 128 tokens, kKvTile): pos just
+    # past a tile (a second split of one token), a tile's last token, rep
+    # not a multiple of 4; on the serve-like grid (4 splits) a last split
+    # whose last tile holds one token, and splits of whole tiles
+    b11 += [kvdq_case(BG, T, hd, rep, pos, seed=340 + i, q_dtype=dt)
+            for i, (BG, T, hd, rep, pos) in enumerate([
+                (2, 1000, 128, 4, 128), (2, 1000, 128, 4, 127),
+                (2, 1000, 64, 3, 256), (64, 1100, 128, 4, 1024),
+                (64, 1100, 128, 4, 767)])
+            for dt in ("float32", "bfloat16")]
+    b11 += [kvdq_case(4, 512, hd, 4, 511, seed=360, q_dtype=dt,
+                      cache=all_codes_cache(4, 512, hd, seed=361),
+                      label="all codes, sweep of scales")
+            for hd in (128, 32) for dt in ("float32", "bfloat16")]
+    kv_dequant_bitwise()
     b10.append(flash_timed(128, 2048, 128))
     b10.append(flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 32, 8, 128))
     b11 += [kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
@@ -1448,7 +1635,7 @@ KERNELS = {
     "kv_dequant_decode_attention": (
         "src/repro_torch/csrc/attention.cu",
         "src/repro/kernels/kv_dequant_attention.py:98", "serve",
-        {"q_dtype": "float32"}),
+        {"q_dtype": "bfloat16"}),
 }
 
 

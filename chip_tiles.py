@@ -1,6 +1,7 @@
 """Time the redesigned kernels at other tile shapes on one NVIDIA GPU.
 
-    python3 chip_tiles.py [--rounds N] [--kinds attention,gate,ring,probe]
+    python3 chip_tiles.py [--rounds N] [--kinds attention,gate,ring,probe,
+                                              mid,mid_probe,kvdq,kvdq_probe]
 
 Builds copies of src/repro_torch/csrc/attention.cu and gate_apply.cu with
 other values of their tile constants (one nvcc per copy, all started
@@ -20,7 +21,18 @@ times it with chip_smoke.py's helpers (CUDA events over cold inputs):
   and two probes of it (not checked): the FMAs alone on what the ring
   holds, and the tile stream with 1/(K/4) of the FMAs, B1 and B6 run
   through gemm_planes_batch, with the SM clock and power nvidia-smi reads
-  while each runs.
+  while each runs;
+* the ring body of gemm_planes_mid (B7) at (O, K, I) = (1, 32, 2^17),
+  (1, 16, 2^18) and (1, 4, 2^20), for output rows a thread, slabs in the
+  ring and the most blocks an SM; ``mid_probe`` times the source and two
+  probes of it (not checked): the FMAs alone on what the ring holds (no
+  copies, no stores) and the slab stream with 1/K of the FMAs;
+* kv_dequant_decode_attention (B11) at the serve shape with a bf16 and an
+  f32 q, for tokens a tile, stages, blocks an SM and cached dims a lane in
+  QK^T; ``kvdq_probe`` times the source and two probes of it (not
+  checked), bf16 q: the dequantize and products alone on what the ring
+  holds (no copies) and the stream alone (copies and barriers, no
+  compute), with the SM clock and power under each.
 
 Prints a kernel_ptxas line (registers, spills) per variant and one JSON
 line per variant and round; the first variant of each kind is the
@@ -40,21 +52,60 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "src", "repro_torch", "csrc")
 
-ATTN_LINES = ("constexpr int kMTh = 2, kBKh = 64;  // bf16",
-              "constexpr int kMTf = 2, kBKf = 16;  // f32")
-#: (bf16 MT, BK), (f32 MT, BK): each copy sets one of each
+#: (bf16 MT, BK), (f32 MT, BK): each copy sets one of each (FLASH_TILING)
 ATTN_VARIANTS = [((2, 64), (2, 16)), ((1, 64), (1, 32)), ((2, 48), (1, 64)),
                  ((2, 32), (2, 32))]
-GATE_LINES = ("constexpr int tc_nc(int K) { return K >= 128 ? 1 : 2; }",
-              "constexpr int tc_warps(int K) { return K >= 128 ? 8 : 16; }")
-#: (NC, warps) at K = 128, then at K = 64
+#: (NC, warps) at K = 128, then at K = 64 (TC_TILING)
 GATE_VARIANTS = [((1, 8), (2, 16)), ((2, 8), (1, 8)), ((2, 16), (2, 8)),
                  ((4, 16), (1, 16))]
-RING_LINE = ("constexpr int kRingTile = 2048, kRingStages = 2, "
-             "kRingBlocksSM = 0;  // ring")
-#: (tile, stages, blocks an SM) of the ring body
+#: (tile, stages, blocks an SM) of the ring body (RING_TILING)
 RING_VARIANTS = [(2048, 2, 0), (2048, 3, 0), (2048, 4, 0), (1024, 2, 0),
                  (1024, 4, 0), (4096, 2, 0), (2048, 2, 1)]
+#: (output rows a thread, columns a thread, stages, blocks an SM) of B7's
+#: ring body (MID_TILING, and blocks an SM by MID_CLAMP where not 0)
+MID_VARIANTS = [(4, 2, 2, 0), (16, 1, 2, 0), (32, 1, 2, 0), (8, 1, 2, 0),
+                (4, 1, 2, 0), (8, 2, 2, 0), (4, 2, 4, 0), (16, 2, 2, 0),
+                (4, 2, 3, 0), (4, 2, 2, 2)]
+#: B7's launch, where a variant caps the blocks an SM
+MID_CLAMP = "  const long long units = outer * ((inner + TI - 1) / TI);\n"
+#: (tokens a tile, stages, blocks an SM, QK^T dims a lane) of B11
+#: (KV_TILING)
+KV_VARIANTS = [(128, 2, 2, 16), (128, 2, 2, 8), (64, 3, 2, 16),
+               (64, 2, 2, 16), (64, 3, 3, 16), (64, 2, 3, 8),
+               (128, 2, 1, 16)]
+#: probes of B7's ring body (timed, not checked): "compute" drops the slab
+#: copies and the stores (stores stay behind tests that do not hold);
+#: "stream" keeps them and runs 1 of the K steps of the FMAs
+MID_PROBE_EDITS = {
+    "none": [],
+    "compute": [
+        ("          cp_async16(dr + k * TI + col, ar + g, bytes);\n"
+         "          cp_async16(di + k * TI + col, ai + g, bytes);\n", ""),
+        ("    if (CT == 2 && inner % 2 == 0 && c + 2 <= cnt) {\n",
+         "    if (accr[0][0] == 1234.5f && acci[0][0] == 1234.5f) {\n"),
+        ("          pr[j * inner + h] = accr[h][j];\n"
+         "          pi[j * inner + h] = acci[h][j];\n",
+         "          if (accr[h][j] == 1234.5f && acci[h][j] == 1234.5f)\n"
+         "            pr[j * inner + h] = 0.f;\n")],
+    "stream": [("    for (int k = 0; k < K; ++k) {\n"
+                "      float x_r[CT], x_i[CT];",
+                "    for (int k = 0; k < 1; ++k) {\n"
+                "      float x_r[CT], x_i[CT];")],
+}
+#: probes of B11 (timed, not checked): "compute" drops every copy of the
+#: ring (the tiles hold what shared memory held) and takes the fast exp2;
+#: "stream" keeps the copies and barriers and drops each tile's compute
+KV_PROBE_EDITS = {
+    "none": [],
+    "compute": [
+        ("  auto copy_tile = [&](int i) {\n",
+         "  auto copy_tile = [&](int i) {\n    if (i >= 0) return;\n"),
+        ("      [&](int i) { return __syncthreads_and(fast_scales(i)); },\n",
+         "      [&](int i) { return __syncthreads_and(1); },\n")],
+    "stream": [("        if (fast)\n          tile(i, std::true_type{});\n"
+                "        else\n          tile(i, std::false_type{});\n",
+                "        (void)fast;\n")],
+}
 #: probes of the ring body at the source's constants (timed, not checked):
 #: "none" is the source itself; "compute" drops the tile copies and the
 #: stores (the FMAs run on what the ring holds; a store is kept behind a
@@ -63,8 +114,8 @@ RING_VARIANTS = [(2048, 2, 0), (2048, 3, 0), (2048, 4, 0), (1024, 2, 0),
 PROBE_EDITS = {
     "none": [],
     "compute": [
-        ("          cp_async16(dr + e, lar + base + e, bytes);\n"
-         "          cp_async16(di + e, lai + base + e, bytes);\n", ""),
+        ("        cp_async16(dr + e, lar + base + e, bytes);\n"
+         "        cp_async16(di + e, lai + base + e, bytes);\n", ""),
         ("step(rowr[kk], rowi[kk], kk);\n      }\n"
          "      lcr[base + e] = rr - ii;\n      lci[base + e] = ri + ir;\n",
          "step(rowr[kk], rowi[kk], kk);\n      }\n"
@@ -77,45 +128,59 @@ PROBE_EDITS = {
 }
 
 
+def edited(src: str, edits) -> str:
+    """``src`` with each (old, new) of ``edits`` made; old must occur once."""
+    for a, b in edits:
+        if src.count(a) != 1:
+            sys.exit(f"chip_tiles: the sources no longer hold {a!r} once")
+        src = src.replace(a, b)
+    return src
+
+
 def sources(tmp: str, kinds) -> dict[str, tuple[str, str, dict]]:
     """name -> (library kind, path of the copy, its constants), for the
-    variant ``kinds`` asked for."""
+    variant ``kinds`` asked for.  A copy sets its tile constants by
+    defining the macro that the source's defaults stand under."""
     out = {}
     with open(os.path.join(CSRC, "attention.cu")) as f:
         attn = f.read()
     with open(os.path.join(CSRC, "gate_apply.cu")) as f:
         gate = f.read()
-    for line in ATTN_LINES + GATE_LINES + (RING_LINE,):
-        if line not in attn + gate:
-            sys.exit(f"chip_tiles: the sources no longer hold {line!r}")
+
+    def tiled(macro: str, *values: int) -> str:
+        return f"#define {macro} {', '.join(map(str, values))}\n"
+
     for (mh, bh), (mf, bf) in ATTN_VARIANTS if "attention" in kinds else ():
-        name = f"attn_h{mh}x{bh}_f{mf}x{bf}"
-        src = attn.replace(ATTN_LINES[0], f"constexpr int kMTh = {mh}, "
-                           f"kBKh = {bh};").replace(
-            ATTN_LINES[1], f"constexpr int kMTf = {mf}, kBKf = {bf};")
-        out[name] = ("attention", src, {"bf16": [mh, bh], "f32": [mf, bf]})
+        out[f"attn_h{mh}x{bh}_f{mf}x{bf}"] = (
+            "attention", tiled("FLASH_TILING", mh, bh, mf, bf) + attn,
+            {"bf16": [mh, bh], "f32": [mf, bf]})
     for (n1, w1), (n2, w2) in GATE_VARIANTS if "gate" in kinds else ():
-        name = f"gate_k128_{n1}x{w1}_k64_{n2}x{w2}"
-        src = gate.replace(GATE_LINES[0], "constexpr int tc_nc(int K) { "
-                           f"return K >= 128 ? {n1} : {n2}; }}").replace(
-            GATE_LINES[1], "constexpr int tc_warps(int K) { "
-            f"return K >= 128 ? {w1} : {w2}; }}")
-        out[name] = ("gate_apply", src, {"K128": [n1, w1], "K64": [n2, w2]})
+        out[f"gate_k128_{n1}x{w1}_k64_{n2}x{w2}"] = (
+            "gate_apply", tiled("TC_TILING", n1, w1, n2, w2) + gate,
+            {"K128": [n1, w1], "K64": [n2, w2]})
     for tile, stages, per_sm in RING_VARIANTS if "ring" in kinds else ():
-        name = f"ring_t{tile}_s{stages}_b{per_sm}"
-        src = gate.replace(RING_LINE, f"constexpr int kRingTile = {tile}, "
-                           f"kRingStages = {stages}, kRingBlocksSM = "
-                           f"{per_sm};")
-        out[name] = ("ring", src, {"tile": tile, "stages": stages,
-                                   "blocks_sm": per_sm})
-    for probe, edits in PROBE_EDITS.items() if "probe" in kinds else ():
-        src = gate
-        for a, b in edits:
-            if src.count(a) != 1:
-                sys.exit(f"chip_tiles: the sources no longer hold {a!r} "
-                         "once")
-            src = src.replace(a, b)
-        out[f"probe_{probe}"] = ("probe", src, {"probe": probe})
+        out[f"ring_t{tile}_s{stages}_b{per_sm}"] = (
+            "ring", tiled("RING_TILING", tile, stages, per_sm) + gate,
+            {"tile": tile, "stages": stages, "blocks_sm": per_sm})
+    for rows, cols, stages, per_sm in MID_VARIANTS if "mid" in kinds else ():
+        clamp = [(MID_CLAMP, f"  if (per_sm > {per_sm}) per_sm = {per_sm};"
+                  f"\n{MID_CLAMP}")] if per_sm else []
+        out[f"mid_r{rows}_c{cols}_s{stages}_b{per_sm}"] = (
+            "mid", tiled("MID_TILING", rows, cols, stages)
+            + edited(gate, clamp),
+            {"rows": rows, "cols": cols, "stages": stages,
+             "blocks_sm": per_sm})
+    for tile, stages, per_sm, kd in KV_VARIANTS if "kvdq" in kinds else ():
+        out[f"kvdq_t{tile}_s{stages}_b{per_sm}_d{kd}"] = (
+            "kvdq", tiled("KV_TILING", tile, stages, per_sm, kd) + attn,
+            {"tile": tile, "stages": stages, "blocks_sm": per_sm,
+             "kdims": kd})
+    for kind, base, table in (("probe", gate, PROBE_EDITS),
+                              ("mid_probe", gate, MID_PROBE_EDITS),
+                              ("kvdq_probe", attn, KV_PROBE_EDITS)):
+        for probe, edits in table.items() if kind in kinds else ():
+            out[f"{kind}_{probe}"] = (kind, edited(base, edits),
+                                      {"probe": probe})
     paths = {}
     for name, (kind, src, consts) in out.items():
         path = os.path.join(tmp, f"{name}.cu")
@@ -131,7 +196,7 @@ def build_all(build, cs, paths: dict) -> dict[str, str]:
     for name, (_, path, _) in paths.items():
         lib = path[:-3] + ".so"
         procs[name] = (lib, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", CSRC, "-o", lib, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -141,7 +206,11 @@ def build_all(build, cs, paths: dict) -> dict[str, str]:
         for fn, lines in cs.ptxas_lines(log).items():
             if (any(k in fn for k in ("tc_kernel", "flash_bf16", "flash_f32"))
                     and ("ILi128E" in fn or "ILi64E" in fn)) or \
-                    (name.startswith("ring") and "ring_kernel" in fn):
+                    (name.startswith("ring") and "ring_kernel" in fn) or \
+                    (name.startswith("mid") and "mid_ring_kernel" in fn
+                     and ("ILi32E" in fn or "ILi4E" in fn)) or \
+                    (name.startswith("kvdq") and "kvdq_partial" in fn
+                     and "ILi128E" in fn):
                 print(f"kernel_ptxas {name} {fn} " + " | ".join(lines),
                       flush=True)
         libs[name] = lib
@@ -176,6 +245,51 @@ def probe_times(cs, ga) -> dict:
     return row
 
 
+def clock_power() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def mid_probe_times(cs, ga) -> dict:
+    """Times of a B7 probe (its results are wrong by design) at the mid
+    variants' shapes, with the SM clock and power under each."""
+    import torch
+    row = {}
+    for O, K, I in MID_SHAPES:
+        ar, ai = cs.unit_planes((O, K, I), K)
+        ur, ui = cs.unit_planes((K, K), K + 1)
+        inputs = cs.cold_copies((ar, ai, ur, ui), (0, 1))
+        row[f"K{K}_ms"] = cs.cuda_ms(ga.gemm_planes_mid, inputs)
+        for i in range(int(1000 / row[f"K{K}_ms"])):
+            ga.gemm_planes_mid(*inputs[i % len(inputs)])
+        row[f"K{K}_clock_power"] = clock_power()
+        torch.cuda.synchronize()
+    return row
+
+
+def kvdq_probe_times(cs, kd) -> dict:
+    """Times of a B11 probe (wrong by design) at the serve shape, bf16 q,
+    with the SM clock and power under it."""
+    import torch
+    B, G, rep, T, hd = cs.SERVE_BATCH, 8, 4, cs.SERVE_MAX_LEN, 128
+    g = torch.Generator(device="cuda:0").manual_seed(6)
+    cache = cs.kv_cache_case((B, G), T, hd, 7)
+    q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0") \
+        .bfloat16()
+    inputs = cs.cold_copies((q, *cache, T - 1), (1, 2, 3, 4, 5, 6))
+    ms = cs.cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)
+    for i in range(int(1000 / ms)):
+        kd.kv_dequant_decode_attention_gqa(*inputs[i % len(inputs)])
+    out = {"bf16_ms": ms, "clock_power": clock_power()}
+    torch.cuda.synchronize()
+    return out
+
+
+#: B7's shapes: the schedules' (1, 32, 2^17) and (1, 4, 2^20), and K = 16
+MID_SHAPES = [(1, 32, 1 << 17), (1, 16, 1 << 18), (1, 4, 1 << 20)]
+
+
 def rebind(mod, lib_path: str) -> None:
     """Point a kernel module's C entry points at another library."""
     fns = mod._kernels()
@@ -205,6 +319,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gate_apply as ga
+    from repro_torch.kernels import kv_dequant_attention as kd
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_line(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -226,6 +341,25 @@ def main() -> int:
                 elif kind == "probe":
                     rebind(ga, libs[name])
                     row = probe_times(cs, ga)
+                elif kind == "mid":
+                    rebind(ga, libs[name])
+                    row = {f"K{K}_ms": cs.gemm_planes_mid_case(
+                        O, K, I, seed=31, timed=True)["ms"]
+                        for O, K, I in MID_SHAPES}
+                elif kind == "mid_probe":
+                    rebind(ga, libs[name])
+                    row = mid_probe_times(cs, ga)
+                elif kind == "kvdq":
+                    rebind(kd, libs[name])
+                    kd._grids.clear()
+                    row = {f"{dt}_ms": cs.kvdq_timed(
+                        cs.SERVE_BATCH, 8, 4, cs.SERVE_MAX_LEN, 128,
+                        cs.SERVE_MAX_LEN - 1, dt)["ms"]
+                        for dt in ("bfloat16", "float32")}
+                elif kind == "kvdq_probe":
+                    rebind(kd, libs[name])
+                    kd._grids.clear()
+                    row = kvdq_probe_times(cs, kd)
                 else:
                     rebind(ga, libs[name])
                     row = {f"B1_K{K}_ms": cs.gemm_case(
@@ -237,7 +371,8 @@ def main() -> int:
                 print("tile_variant " + json.dumps(
                     {"round": rnd, "variant": name, **consts, **row}),
                     flush=True)
-    fa._fns = ga._fns = None
+    fa._fns = ga._fns = kd._fns = None
+    kd._grids.clear()
     return 0
 
 

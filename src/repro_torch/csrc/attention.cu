@@ -43,30 +43,48 @@
 // slice of the stacked (U, B, T, G, hd) serving cache is never copied, and q
 // (B, 1, Hq, hd) is read as (B·G, rep, hd).
 //
-// What bounds it: bytes.  Each cached token costs hd + hd/8 + 4 bytes for
-// K and the same for V against 4·rep·hd FMAs, ~2 FMA per byte.  The TPU grid
-// is (B·G,): 64 blocks at the serving shape, too few to keep 132 SMs'
-// loads in flight.  So the grid is (B·G, splits): a block takes 256 tokens
-// of one (batch, kv head), keeps its rep query rows in shared memory, and
-// leaves the chunk's (max, sum, P·V) to a combine kernel (flash-decoding);
-// with one split the block writes the result itself.  Registers are capped
-// for two blocks an SM.  Chunks past pos are not launched: their tokens are
-// masked, so they would add exactly 0.
-// Within a chunk, QK^T takes one token a thread: its codes come as 16-byte
-// words and its sign bits as 16-bit words, all loads issued before any
-// use, and no shuffles are needed; P·V spreads a token over hd/4 lanes (4
-// codes a 32-bit load, tokens in flight unrolled by 4) and sums the lane
-// groups through shared memory.  The dequantize uses __fmul_rn/__fsub_rn so
-// nvcc cannot fuse it into an FMA the plain version does not do.
+// What bounds it: bytes, then the dequantize.  Each cached token costs
+// hd + hd/8 + 4 bytes for K and the same for V: 0.0232 ms at the serve shape
+// (B 8, G 8, T 4,096, hd 128).  Dequantizing its 67.1 M elements takes one
+// MUFU.EX2 each, 16 an SM a clock: 0.016 ms at 1.98 GHz; with the FMAs (4·rep
+// per element counting K and V) and the rest of the arithmetic the issue
+// slots come close to the bytes.  So the kernel streams, and dequantizes each
+// element once with as few instructions as it can:
+//   * the grid is (B·G·ceil(rep/4), splits): a block takes 4 query rows of
+//     one (batch, kv head) over a span of tokens, as many spans as fill the
+//     card (kv_dequant_attention.py::splits), and walks its span in tiles
+//     through a ring of cp.async stages that carry each tile's K and V
+//     codes, signs and scales together, so the next tiles load while this
+//     one computes;
+//   * the online softmax runs across the tiles inside the block (running max
+//     m, sum l, accumulators rescaled by exp(m - m_new)); partial blocks
+//     leave (m, l, P·V) to a combine kernel (flash-decoding), one split
+//     writes the result itself;
+//   * the dequantize (dequant4) is bit for bit the previous form: the code
+//     to float by the magic number 2^23 (no I2F), the scale's two rounded
+//     operations (__fmul_rn/__fsub_rn, so nvcc cannot fuse them into an FMA
+//     the plain version does not do), exp2f as one MUFU.EX2 where the tile's
+//     scales keep every argument normal, the sign as bit 31, and for a bf16
+//     q the bf16 rounding as one packed cvt.rn.bf16x2 for two values.
+// Measured on one H100 (PERF.md §6): at the serve shape with a bf16 q the
+// arithmetic alone (no copies) takes 0.064 ms and the stream alone 0.035;
+// together 0.074.  The arithmetic, not the bytes, sets the pace, and not
+// through issue slots alone: QK^T on the tensor cores saved ~5%, integer
+// bf16 rounding (+3 integer ops an element) cost 17%.
 // Rounding follows q's type, as repro's serving decode does (the cache
 // dequantizes to the model's dtype, dequantize_kv; _gqa_out rounds the
 // probabilities to v's): for a bf16 q each dequantized K and V element is
-// rounded to bf16 (nearest even) before its products, and p = exp(s - m)
-// to bf16 before P·V, unnormalised, divided by the f32 sum of the unrounded
-// p; the sums stay f32.  For an f32 q nothing is rounded.
+// rounded to bf16 (nearest even) before its products, and p = exp(s - m) to
+// bf16 before P·V, unnormalised and relative to the block's running max m,
+// divided by the f32 sum of the unrounded p; the sums stay f32.  For an f32
+// q nothing is rounded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -81,27 +99,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // ---------------------------------------------------------------- B10 -----
 
 constexpr int kFThreads = 128;  // 4 warps
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  // src-size 0 zero-fills the 16 bytes (rows past S)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -187,7 +184,9 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
     for (int e = threadIdx.x; e < ROWS * CH; e += kFThreads) {
       const int r = e / CH, c = e % CH, s = s0 + r;
       const bool in = s < S;
-      cp_async16(dst + r * P + c * E, in ? src + s * rs + c * E : src, in);
+      // src-size 0 zero-fills the 16 bytes (rows past S)
+      cp_async16(dst + r * P + c * E, in ? src + s * rs + c * E : src,
+                 in ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * D; e += kFThreads) {
@@ -264,9 +263,14 @@ __device__ __forceinline__ void finish_rows(float (&l)[2]) {
 // memory feeds MT MMAs, which sets the ratio of MMAs to shared-memory
 // reads; MT = 2 holds 32 rows' accumulators, the most 255 registers take.
 // The values below timed fastest at hd = 128 on one H100 among those
-// chip_tiles.py tries (PERF.md §6).
-constexpr int kMTh = 2, kBKh = 64;  // bf16
-constexpr int kMTf = 2, kBKf = 16;  // f32
+// chip_tiles.py tries (PERF.md §6); it builds the source with others by
+// defining FLASH_TILING (MT, BK for bf16, then for f32).
+#ifndef FLASH_TILING
+#define FLASH_TILING 2, 64, 2, 16
+#endif
+constexpr int kFlashTiling[] = {FLASH_TILING};
+constexpr int kMTh = kFlashTiling[0], kBKh = kFlashTiling[1];  // bf16
+constexpr int kMTf = kFlashTiling[2], kBKf = kFlashTiling[3];  // f32
 
 template <int D, int MT, int BK>
 constexpr int flash_bf16_smem() {
@@ -678,9 +682,19 @@ cudaError_t dispatch_flash(int bf16, const void* q, const long long* qst,
 
 // ---------------------------------------------------------------- B11 -----
 
-constexpr int kDThreads = 256;
-constexpr int kChunk = kDThreads;  // tokens per block: one a thread in QK^T
-constexpr int kRB = 8;             // query rows per pass
+// Tokens a tile, tiles in the ring, blocks an SM (registers are capped for
+// it), and cached dims a lane in QK^T.  The values below timed fastest at
+// the serve shape on one H100 among those chip_tiles.py tries (PERF.md §6);
+// it builds the source with others by defining KV_TILING.
+#ifndef KV_TILING
+#define KV_TILING 128, 2, 2, 16
+#endif
+constexpr int kKvTiling[] = {KV_TILING};
+constexpr int kKvTile = kKvTiling[0], kKvStages = kKvTiling[1],
+              kKvBlocksSM = kKvTiling[2], kKvKDims = kKvTiling[3];
+constexpr int kKvThreads = 256, kKvWarps = kKvThreads / 32;
+constexpr int kKvRows = 4;         // query rows a block (a row block)
+constexpr float kKvFastScale = -100.0f;
 
 // One layer's K or V cache seen as (B, G, T, ·) by element strides.
 struct KvView {
@@ -690,8 +704,9 @@ struct KvView {
   long long cb, cg, ct, sb, sg, st, lb, lg, lt;
 };
 
-// One element exactly as _dequant: |x| = exp2(scale - (255 - c)·step), 0
-// for c = 0, negative where its sign bit is set.
+// One element as _dequant: |x| = exp2(scale - (255 - c)·step), 0 for
+// c = 0, negative where its sign bit is set; the previous kernel's form,
+// kept as the reference of kv_dequant_rows_f32.
 __device__ __forceinline__ float dequant1(uint32_t c, uint32_t neg, float sc,
                                           float step) {
   const float d = 255.0f - (float)c;
@@ -709,173 +724,545 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__host__ __device__ constexpr int kvdq_smem_floats(int rep, int hd) {
-  return rep * hd + rep * kChunk + kDThreads * 4 * kRB + 2 * rep;
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// byte U of x under the exponent byte of `magic` (the float 2^23 + byte)
+template <int U>
+__device__ __forceinline__ uint32_t magic_byte(uint32_t x, uint32_t magic) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(magic),
+      "n"(0x7440 | U));
+  return r;
+}
+
+// Four elements of a cache row, bit for bit dequant1 then round_as<TQ>:
+// codes c_u = byte u of `word`, sign u = bit u of `sgn`.  255 - c is c ^ 255
+// for a byte, so one PRMT builds the float 2^23 + (255 - c) and one
+// subtraction of 2^23 gives d exactly; the scale's two rounded operations
+// stay; c = 0 (d = 255) selects +0; the sign is bit 31 (so c = 0 with its
+// sign set is -0, as -mag); bf16 rounding is cvt.rn.bf16x2 on two values
+// at once (round to nearest even, as __float2bfloat16_rn).  FAST: every
+// exp2 argument of the tile is >= -126 (its scales are >= kKvFastScale and
+// d·step <= 16.1), where exp2f is the single MUFU.EX2 that ex2.approx.ftz
+// is; elsewhere exp2f itself.  dequant_mag4 gives the magnitudes (c = 0 as
+// +0), dequant4 the signed values.
+template <bool FAST>
+__device__ __forceinline__ void dequant_mag4(uint32_t word, float sc,
+                                             float step, float (&mag)[4]) {
+  const uint32_t inv = ~word;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t f = u == 0   ? magic_byte<0>(inv, 0x4b000000u)
+                       : u == 1 ? magic_byte<1>(inv, 0x4b000000u)
+                       : u == 2 ? magic_byte<2>(inv, 0x4b000000u)
+                                : magic_byte<3>(inv, 0x4b000000u);
+    const float d = __uint_as_float(f) - 8388608.0f;
+    const float x = __fsub_rn(sc, __fmul_rn(d, step));
+    const float m = FAST ? ex2_ftz(x) : exp2f(x);
+    mag[u] = d == 255.0f ? 0.0f : m;
+  }
+}
+
+template <typename TQ, bool FAST>
+__device__ __forceinline__ void dequant4(uint32_t word, uint32_t sgn,
+                                         float sc, float step, float (&v)[4]) {
+  float mag[4];
+  dequant_mag4<FAST>(word, sc, step, mag);
+  uint32_t bits[4];
+  if constexpr (std::is_same<TQ, float>::value) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bits[u] = __float_as_uint(mag[u]);
+  } else {  // two cvt.rn.bf16x2.f32, each value back in its f32 container
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(mag[0], mag[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(mag[2], mag[3]);
+    const uint32_t l = *reinterpret_cast<const uint32_t*>(&lo);
+    const uint32_t h = *reinterpret_cast<const uint32_t*>(&hi);
+    bits[0] = l << 16, bits[1] = l & 0xffff0000u;
+    bits[2] = h << 16, bits[3] = h & 0xffff0000u;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    v[u] = __uint_as_float(bits[u] | ((sgn << (31 - u)) & 0x80000000u));
+}
+
+// The same four elements of a bf16 cache as two packed bf16 pairs
+// (elements 0, 1 in the first word, the lower half first), the signs in
+// bits 15 and 31: the B fragment registers of an m16n8k16 bf16 MMA, the
+// values dequant4<bf16> gives, with no unpacking.
+template <bool FAST>
+__device__ __forceinline__ void dequant4_bf16x2(uint32_t word, uint32_t sgn,
+                                                float sc, float step,
+                                                uint32_t (&b)[2]) {
+  float mag[4];
+  dequant_mag4<FAST>(word, sc, step, mag);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(mag[0], mag[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(mag[2], mag[3]);
+  b[0] = *reinterpret_cast<const uint32_t*>(&lo) | ((sgn << 15) & 0x8000u) |
+         ((sgn << 30) & 0x80000000u);
+  b[1] = *reinterpret_cast<const uint32_t*>(&hi) | ((sgn << 13) & 0x8000u) |
+         ((sgn << 28) & 0x80000000u);
+}
+
+__host__ __device__ constexpr int kv_log2(int x) {
+  return x > 1 ? 1 + kv_log2(x / 2) : 0;
+}
+
+// Bytes of one ring stage: codes of K, of V; signs of K, of V; scales of K,
+// of V (every section a 16-byte multiple)
+template <int HD>
+__host__ __device__ constexpr int kv_stage_bytes() {
+  return kKvTile * (2 * HD + 2 * (HD / 8) + 2 * 4);
+}
+
+// Cached dims a lane takes in QK^T, and the pitch (in floats) of a lane's
+// share of a q row in shared memory: 4 floats of padding put the 8 lanes of
+// a quarter warp on distinct banks
+template <int HD>
+__host__ __device__ constexpr int kv_kdims() {
+  return HD < kKvKDims ? HD : kKvKDims;
+}
+template <int HD>
+__host__ __device__ constexpr int kv_qpitch() {
+  return kv_kdims<HD>() + 4;
+}
+
+template <int HD>
+__host__ __device__ constexpr int kv_smem_bytes() {
+  return kKvStages * kv_stage_bytes<HD>() +
+         4 * (kKvRows * (HD / kv_kdims<HD>()) * kv_qpitch<HD>() +
+              kKvRows * kKvTile + kKvTile * kKvRows + kKvWarps * kKvRows +
+              kKvRows);
+}
+
+// One block: query rows r0 .. r0 + 3 of one (batch, kv head) over the
+// tokens [s0, s1) of its split, walked as tiles of kKvTile tokens through a
+// ring of kKvStages cp.async stages that carry each tile's K and V codes,
+// signs and scales together, so the next tiles are in flight while this one
+// is dequantized and multiplied.  A tile:
+//   * QK^T with a bf16 q (what serve runs): on the tensor cores, one
+//     m16n8k16 MMA a 16-dim chunk of 8 tokens, q's 4 rows as the A
+//     fragments in registers and each lane dequantizing one 32-bit code
+//     word straight into its packed-bf16 B fragment (dequant4_bf16x2);
+//     the reduction index is permuted within a chunk so a lane's four k
+//     are four neighbouring dims, and products of bf16 are exact in the
+//     MMA's f32 sums;
+//   * QK^T with an f32 q: LPT = HD / kKvKDims lanes a token, each
+//     dequantizing its kKvKDims elements once (one 16-byte code load for
+//     16) against the four rows of q, read from shared memory as
+//     broadcast float4s (in registers they would cost 64 and force
+//     spills); the rows' partial dots are summed
+//     over the token's lanes by a butterfly that halves the rows it carries
+//     at each of its first two levels; scores go to shared memory (-2^30
+//     past the split's last token);
+//   * barrier; then each warp on its own: the tile's max of every row from
+//     all scores, the running max m and the rescale exp(m - m_new) of its
+//     accumulators, p = exp(s - m_new) for its own tokens (rounded to bf16
+//     for a bf16 q, the f32 sum of the unrounded p kept a lane), then P·V
+//     over the same tokens: 4 dims a lane (one 32-bit code load), the 4 rows'
+//     p as one broadcast float4;
+//   * the block barrier at the top of the next tile both publishes that
+//     tile's copies and frees the stage the next copy reuses.
+// At the end the warps' accumulators and sums meet in shared memory (the
+// ring's bytes) and the block writes its rows, normalised (one split) or as
+// a partial (max, sum, P·V) for kvdq_combine_kernel.
 template <int HD, typename TQ>
-__global__ void __launch_bounds__(kDThreads, 2)
+__global__ void __launch_bounds__(kKvThreads, kKvBlocksSM)
 kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
-                    long long qr, KvView kc, KvView vc, float* __restrict__ out,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int G, int rep, int T, int pos, float scale, float step) {
-  constexpr int LPT = HD / 4;            // P·V: lanes a token, 4 elements each
-  constexpr int GROUPS = kDThreads / LPT;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [rep][HD]
-  float* ps = qs + rep * HD;             // [rep][kChunk] scores, then p
-  float* red = ps + rep * kChunk;        // [GROUPS][kRB][HD] partial P·V
-  float* ml = red + kDThreads * 4 * kRB; // [rep][2] chunk max and sum
+                    long long qr, KvView kc, KvView vc, int sign_lw,
+                    float* __restrict__ out, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int G, int rep, int n_rb,
+                    int span, int live, float scale, float step) {
+  constexpr int TT = kKvTile, S = kKvStages, R = kKvRows;
+  constexpr int KD = kv_kdims<HD>(), QP = kv_qpitch<HD>();
+  constexpr int LPT = HD / KD;        // QK^T: lanes a token
+  constexpr int TPW = 32 / LPT;       // tokens a warp step
+  constexpr int KPASS = (TT + kKvWarps * TPW - 1) / (kKvWarps * TPW);
+  constexpr int LPV = HD / 4;         // P·V: lanes a token
+  constexpr int TPV = 32 / LPV;       // tokens a warp step
+  constexpr int TW = TT / kKvWarps;   // P·V: tokens a warp owns a tile
+  constexpr int SB = kv_stage_bytes<HD>();
+  static_assert((KD == 8 || KD == 16) && LPT <= 32 && LPV <= 32,
+                "hd in 16 .. 128; a lane's QK^T signs are one or two bytes");
+  static_assert(TT % 64 == 0 && TW % TPV == 0, "whole warps of pairs");
+  static_assert(S * SB >= 4 * kKvWarps * R * HD, "the ring holds the sums");
+  extern __shared__ __align__(16) unsigned char kv_smem[];
+  unsigned char* ring = kv_smem;
+  float* q_s = reinterpret_cast<float*>(kv_smem + S * SB);   // [R][LPT][QP]
+  float* sc_s = q_s + R * LPT * QP;                          // [R][TT] scores
+  float* p_s = sc_s + R * TT;                                // [TT][R] p
+  float* l_s = p_s + TT * R;                                 // [warps][R]
+  float* m_s = l_s + kKvWarps * R;                           // [R]
 
-  const int tid = threadIdx.x;
-  const int bg = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
-  const int b = bg / G, g = bg % G;
-  const int t0 = split * kChunk;
-  const int t_end = min(t0 + kChunk, min(T, pos + 1));  // tokens j <= pos
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bg = blockIdx.x / n_rb, rb = blockIdx.x % n_rb;
+  const int b = bg / G, g = bg % G, r0 = rb * R;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int s0 = split * span, s1 = min(live, s0 + span);
+  const int n_tiles = (s1 - s0 + TT - 1) / TT;
 
-  const TQ* qp = q + b * qb + g * qg;
-  for (int e = tid; e < rep * HD; e += kDThreads)
-    qs[e] = to_f32(qp[(e / HD) * qr + e % HD]);
-  __syncthreads();
-
-  // QK^T: one token a thread, its codes read as 16-byte words and its K
-  // row dequantized once a pass of kRB query rows
-  {
-    const int t = t0 + tid;
-    const bool live = t < t_end;
-    const uint8_t* crow = kc.codes + b * kc.cb + g * kc.cg + (long long)t * kc.ct;
-    const uint8_t* srow = kc.signs + b * kc.sb + g * kc.sg + (long long)t * kc.st;
-    const float sc = live ? kc.scale[b * kc.lb + g * kc.lg + (long long)t * kc.lt] : 0.f;
-    uint4 cw[HD / 16];
-    uint32_t sw[HD / 16];
+  // f32 q: rows r0 .. r0 + 3 (0 past rep) in shared memory, a lane's KD
+  // dims QP floats apart, published by the ring's first barrier.  bf16 q:
+  // the A fragments of QK^T's MMAs in registers, row gq (0 past the 4
+  // rows or rep), reduction index k of 16-dim chunk kc permuted so that
+  // k = 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9 are dims 16 kc + 4 tq + 0 .. 3,
+  // the four codes of one 32-bit word (the B side reads them so)
+  constexpr bool BF = !std::is_same<TQ, float>::value;
+  constexpr int NC = HD / 16;
+  const int li = lane % LPT, gq = lane >> 2, tq = lane & 3;
+  uint32_t qa[BF ? NC : 1][2];
+  if constexpr (BF) {
+    const unsigned short* qp = reinterpret_cast<const unsigned short*>(
+        q + b * qb + g * qg + (r0 + gq) * qr);
+    const bool live_row = gq < R && r0 + gq < rep;
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      cw[c] = live ? reinterpret_cast<const uint4*>(crow)[c] : make_uint4(0, 0, 0, 0);
-      sw[c] = live ? reinterpret_cast<const uint16_t*>(srow)[c] : 0u;
+    for (int kc = 0; kc < NC; ++kc) {
+      const int d = 16 * kc + 4 * tq;
+      qa[kc][0] = live_row ? qp[d] | (uint32_t)qp[d + 1] << 16 : 0u;
+      qa[kc][1] = live_row ? qp[d + 2] | (uint32_t)qp[d + 3] << 16 : 0u;
     }
-    for (int r0 = 0; r0 < rep; r0 += kRB) {
-      float dot[kRB];
+  } else {
+    const TQ* qp = q + b * qb + g * qg;
+    for (int e = tid; e < R * HD; e += kKvThreads) {
+      const int r = e / HD, d = e % HD;
+      q_s[(r * LPT + d / KD) * QP + d % KD] =
+          r0 + r < rep ? to_f32(qp[(r0 + r) * qr + d]) : 0.f;
+    }
+  }
+
+  // Tile i's tokens into stage i % S; rows past s1 are not copied (nothing
+  // reads them).  A thread copies the same chunks of the same rows of every
+  // tile, so its sources are fixed pointers, one tile further on each time.
+  // Codes: 16-byte chunk cc of rows tc + k·TS.
+  constexpr int CC = HD / 16, TS = kKvThreads / CC;
+  const int cc = tid % CC, tc = tid / CC;
+  const uint8_t* const kcp = kc.codes + b * kc.cb + g * kc.cg +
+                             (long long)(s0 + tc) * kc.ct + 16 * cc;
+  const uint8_t* const vcp = vc.codes + b * vc.cb + g * vc.cg +
+                             (long long)(s0 + tc) * vc.ct + 16 * cc;
+  // signs: 1 << cs_l chunks of 1 << sign_lw bytes (16, 8 or 4 by cp.async,
+  // 2 by a plain copy) a row of hd/8 bytes; thread tid takes chunk
+  // tid % (1 << cs_l) of the rows tid >> cs_l + k·(256 >> cs_l) of K, then V
+  const int cs_l = kv_log2(HD / 8) - sign_lw;
+  const int s_off = (tid & ((1 << cs_l) - 1)) << sign_lw, s_row = tid >> cs_l;
+  const uint8_t* const ksp = kc.signs + b * kc.sb + g * kc.sg +
+                             (long long)s0 * kc.st + s_off;
+  const uint8_t* const vsp = vc.signs + b * vc.sb + g * vc.sg +
+                             (long long)s0 * vc.st + s_off;
+  const float* const klp = kc.scale + b * kc.lb + g * kc.lg +
+                           (long long)s0 * kc.lt;
+  const float* const vlp = vc.scale + b * vc.lb + g * vc.lg +
+                           (long long)s0 * vc.lt;
+  auto copy_tile = [&](int i) {
+    unsigned char* st = ring + (i % S) * SB;
+    const int n = min(TT, s1 - s0 - i * TT);
 #pragma unroll
-      for (int rr = 0; rr < kRB; ++rr) dot[rr] = 0.f;
+    for (int k = 0; k < (TT + TS - 1) / TS; ++k) {
+      const int t = tc + k * TS;
+      if (t < n) {
+        const int row = i * TT + k * TS;  // tokens past this thread's first
+        cp_async16(st + t * HD + 16 * cc, kcp + (long long)row * kc.ct, 16);
+        cp_async16(st + TT * HD + t * HD + 16 * cc,
+                   vcp + (long long)row * vc.ct, 16);
+      }
+    }
+    unsigned char* ss = st + 2 * TT * HD;
+    for (int r = s_row; r < 2 * TT; r += kKvThreads >> cs_l) {
+      const int t = r % TT;
+      if (t < n) {
+        const int row = i * TT + t;
+        const uint8_t* src = r < TT ? ksp + (long long)row * kc.st
+                                    : vsp + (long long)row * vc.st;
+        unsigned char* dst = ss + r * (HD / 8) + s_off;
+        if (sign_lw == 4)
+          cp_async16(dst, src, 16);
+        else if (sign_lw == 3)
+          cp_async8(dst, src);
+        else if (sign_lw == 2)
+          cp_async4(dst, src);
+        else
+          *reinterpret_cast<uint16_t*>(dst) =
+              *reinterpret_cast<const uint16_t*>(src);
+      }
+    }
+    float* sl = reinterpret_cast<float*>(ss + 2 * TT * (HD / 8));
+    for (int e = tid; e < 2 * TT; e += kKvThreads) {
+      const int t = e % TT;
+      if (t < n) {
+        const int row = i * TT + t;
+        cp_async4(sl + e, e < TT ? klp + (long long)row * kc.lt
+                                 : vlp + (long long)row * vc.lt);
+      }
+    }
+  };
+  // after this thread's copies of tile i have landed: are the scales it
+  // copied in the fast range (see dequant4)?
+  auto fast_scales = [&](int i) {
+    const float* sl = reinterpret_cast<const float*>(ring + (i % S) * SB +
+                                                     2 * TT * HD +
+                                                     2 * TT * (HD / 8));
+    const int n = min(TT, s1 - s0 - i * TT);
+    bool ok = true;
+    for (int e = tid; e < 2 * TT; e += kKvThreads)
+      if (e % TT < n) ok = ok && sl[e] >= kKvFastScale;
+    return (int)ok;
+  };
+
+  float m_run[R], acc[R][4], l_part = 0.f;
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
-        const uint32_t words[4] = {cw[c].x, cw[c].y, cw[c].z, cw[c].w};
+  for (int r = 0; r < R; ++r) {
+    m_run[r] = kNegInf;
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
+    for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+  }
+
+  auto tile = [&](int i, auto fast) {
+    constexpr bool FAST = decltype(fast)::value;
+    const unsigned char* st = ring + (i % S) * SB;
+    const unsigned char* kcs = st;
+    const unsigned char* vcs = st + TT * HD;
+    const unsigned char* kss = st + 2 * TT * HD;
+    const unsigned char* vss = kss + TT * (HD / 8);
+    const float* kls = reinterpret_cast<const float*>(vss + TT * (HD / 8));
+    const float* vls = kls + TT;
+    const int n = min(TT, s1 - s0 - i * TT);
+
+    // QK^T.  bf16 q: a warp takes groups of 8 tokens, lane (gq, tq)
+    // dequantizing token gq's four dims 16 kc + 4 tq .. + 3 straight into
+    // its B fragment, one m16n8k16 MMA a 16-dim chunk; rows 0 .. 3 of the
+    // product are the scores (tokens 2 tq, 2 tq + 1 in lanes gq < 4)
+    if constexpr (BF) {
+#pragma unroll
+      for (int grp = warp; grp < TT / 8; grp += kKvWarps) {
+        const int t = grp * 8 + gq;
+        const bool in = t < n;
+        const float sc = in ? kls[t] : 0.f;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kc = 0; kc < NC; ++kc) {
+          uint32_t w = 0u, sg = 0u;
+          if (in) {
+            w = *reinterpret_cast<const uint32_t*>(kcs + t * HD + 16 * kc +
+                                                   4 * tq);
+            sg = (uint32_t)*reinterpret_cast<const uint16_t*>(
+                     kss + t * (HD / 8) + 2 * kc) >> (4 * tq);
+          }
+          uint32_t bk[2];
+          dequant4_bf16x2<FAST>(w, sg, sc, step, bk);
+          const uint32_t a[4] = {qa[kc][0], 0u, qa[kc][1], 0u};
+          mma_bf16(c, a, bk[0], bk[1]);
+        }
+        if (gq < R) {
+          const int tok = grp * 8 + 2 * tq;
+          sc_s[gq * TT + tok] = tok < n ? c[0] * scale : kNegInf;
+          sc_s[gq * TT + tok + 1] = tok + 1 < n ? c[1] * scale : kNegInf;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int pass = 0; pass < KPASS; ++pass) {
+        const int t = (pass * kKvWarps + warp) * TPW + lane / LPT;
+        const bool in = t < n;
+        uint32_t w[KD / 4], sgn = 0;
+        float sc = 0.f;
+        if (in) {
+          if constexpr (KD == 16) {
+            const uint4 c4 =
+                *reinterpret_cast<const uint4*>(kcs + t * HD + KD * li);
+            w[0] = c4.x, w[1] = c4.y, w[2] = c4.z, w[3] = c4.w;
+          } else {
+            const uint2 c2 =
+                *reinterpret_cast<const uint2*>(kcs + t * HD + KD * li);
+            w[0] = c2.x, w[1] = c2.y;
+          }
+          if constexpr (KD == 16)
+            sgn = *reinterpret_cast<const uint16_t*>(kss + t * (HD / 8) +
+                                                     2 * li);
+          else
+            sgn = kss[t * (HD / 8) + li];
+          sc = kls[t];
+        } else {
+#pragma unroll
+          for (int c = 0; c < KD / 4; ++c) w[c] = 0u;
+        }
+        float dot[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) dot[r] = 0.f;
+#pragma unroll
+        for (int c = 0; c < KD / 4; ++c) {
           float kv[4];
+          dequant4<TQ, FAST>(w[c], sgn >> (4 * c), sc, step, kv);
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            kv[u] = round_as<TQ>(dequant1((words[w] >> (8 * u)) & 255u,
-                                          (sw[c] >> (4 * w + u)) & 1u, sc,
-                                          step));
-          const int d = 16 * c + 4 * w;
-#pragma unroll
-          for (int rr = 0; rr < kRB; ++rr) {
-            if (r0 + rr < rep) {
-              const float4 qv =
-                  *reinterpret_cast<const float4*>(&qs[(r0 + rr) * HD + d]);
-              dot[rr] = fmaf(qv.x, kv[0], dot[rr]);
-              dot[rr] = fmaf(qv.y, kv[1], dot[rr]);
-              dot[rr] = fmaf(qv.z, kv[2], dot[rr]);
-              dot[rr] = fmaf(qv.w, kv[3], dot[rr]);
-            }
+          for (int r = 0; r < R; ++r) {
+            const float4 qv = *reinterpret_cast<const float4*>(
+                q_s + (r * LPT + li) * QP + 4 * c);
+            dot[r] = fmaf(qv.x, kv[0], dot[r]);
+            dot[r] = fmaf(qv.y, kv[1], dot[r]);
+            dot[r] = fmaf(qv.z, kv[2], dot[r]);
+            dot[r] = fmaf(qv.w, kv[3], dot[r]);
           }
         }
+        // the token's dots summed over its LPT lanes; after the first two
+        // levels a lane carries one row, (lane bit LPT/2, bit LPT/4) = row
+        if constexpr (LPT >= 4) {
+          const bool hi = li & (LPT / 2), h2 = li & (LPT / 4);
+          float k0 = hi ? dot[2] : dot[0], k1 = hi ? dot[3] : dot[1];
+          const float s0v = hi ? dot[0] : dot[2], s1v = hi ? dot[1] : dot[3];
+          k0 += __shfl_xor_sync(0xffffffffu, s0v, LPT / 2);
+          k1 += __shfl_xor_sync(0xffffffffu, s1v, LPT / 2);
+          float val = (h2 ? k1 : k0) +
+                      __shfl_xor_sync(0xffffffffu, h2 ? k0 : k1, LPT / 4);
+#pragma unroll
+          for (int off = LPT / 8; off > 0; off >>= 1)
+            val += __shfl_xor_sync(0xffffffffu, val, off);
+          const int row = 2 * hi + h2;
+          if (t < TT && (li & (LPT / 4 - 1)) == 0)
+            sc_s[row * TT + t] = in ? val * scale : kNegInf;
+        } else {
+#pragma unroll
+          for (int off = LPT / 2; off > 0; off >>= 1)
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
+          if (t < TT && li == 0)
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              sc_s[r * TT + t] = in ? dot[r] * scale : kNegInf;
+        }
       }
-#pragma unroll
-      for (int rr = 0; rr < kRB; ++rr)
-        if (r0 + rr < rep)
-          ps[(r0 + rr) * kChunk + tid] = live ? dot[rr] * scale : kNegInf;
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // per row: the chunk's max, p = exp(s - max), and its sum
-  const int warp = tid >> 5, wl = tid & 31;
-  for (int r = warp; r < rep; r += kDThreads / 32) {
-    float* row = ps + r * kChunk;
-    float mx = kNegInf;
-    for (int t = wl; t < kChunk; t += 32) mx = fmaxf(mx, row[t]);
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int t = wl; t < kChunk; t += 32) {
-      const float p = expf(row[t] - mx);
-      row[t] = round_as<TQ>(p);
-      sum += p;
+    // the tile's max of each row (every warp the same), the new running
+    // max, and p for this warp's TW tokens: pair e = (token e / R, row e % R)
+    float mt[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mt[r] = kNegInf;
+#pragma unroll
+      for (int k = 0; k < TT / 32; ++k)
+        mt[r] = fmaxf(mt[r], sc_s[r * TT + lane + 32 * k]);
     }
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (wl == 0) {
-      ml[2 * r] = mx;
-      ml[2 * r + 1] = sum;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], off));
+    float alpha[R], my_m = 0.f, my_a = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float mn = fmaxf(m_run[r], mt[r]);
+      alpha[r] = expf(m_run[r] - mn);
+      m_run[r] = mn;
+      if ((lane & (R - 1)) == r) {
+        my_m = mn;
+        my_a = alpha[r];
+      }
     }
-  }
-  __syncthreads();
+    l_part *= my_a;
+#pragma unroll
+    for (int e = lane; e < TW * R; e += 32) {
+      const int t = warp * TW + e / R;
+      const float pv = expf(sc_s[(e % R) * TT + t] - my_m);
+      l_part += pv;
+      p_s[t * R + e % R] = round_as<TQ>(pv);
+    }
+    __syncwarp();
 
-  // P·V: LPT lanes share a token (4 elements a lane, one 32-bit code
-  // load), GROUPS tokens at a time, then a sum over the groups
-  const int grp = tid / LPT, d0 = 4 * (tid % LPT);
-  const long long slot = (long long)bg * n_split + split;
-  for (int r0 = 0; r0 < rep; r0 += kRB) {
-    float acc[kRB][4];
+    // P·V over the warp's tokens
 #pragma unroll
-    for (int rr = 0; rr < kRB; ++rr)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[rr][u] = 0.f;
-#pragma unroll 4
-    for (int t = t0 + grp; t < t_end; t += GROUPS) {
-      const uint32_t c4 = *reinterpret_cast<const uint32_t*>(
-          vc.codes + b * vc.cb + g * vc.cg + (long long)t * vc.ct + d0);
-      const uint32_t s4 =
-          (uint32_t)vc.signs[b * vc.sb + g * vc.sg + (long long)t * vc.st +
-                             (d0 >> 3)] >> (d0 & 7);
-      const float sc = vc.scale[b * vc.lb + g * vc.lg + (long long)t * vc.lt];
-      float vv[4];
+      for (int u = 0; u < 4; ++u) acc[r][u] *= alpha[r];
+    const int d0 = 4 * (lane % LPV);
+#pragma unroll
+    for (int k = 0; k < TW; k += TPV) {
+      const int t = warp * TW + k + lane / LPV;
+      if (t < n) {
+        const uint32_t cw =
+            *reinterpret_cast<const uint32_t*>(vcs + t * HD + d0);
+        const uint32_t sgn = vss[t * (HD / 8) + (d0 >> 3)] >> (d0 & 7);
+        float vv[4];
+        dequant4<TQ, FAST>(cw, sgn, vls[t], step, vv);
+        const float4 p4 = *reinterpret_cast<const float4*>(p_s + t * R);
+        const float pr[R] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(pr[r], vv[u], acc[r][u]);
+      }
+    }
+  };
+
+  // the ring: tile i + S - 1 in flight during tile i; its barrier also
+  // votes on the fast exp2
+  ring_walk<S>(
+      n_tiles, copy_tile,
+      [&](int i) { return __syncthreads_and(fast_scales(i)); },
+      [&](int i, int fast) {
+        if (fast)
+          tile(i, std::true_type{});
+        else
+          tile(i, std::false_type{});
+      });
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the sums meet in its bytes
+
+  float* red = reinterpret_cast<float*>(ring);  // [warps][R][HD]
+#pragma unroll
+  for (int off = LPV; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        vv[u] = round_as<TQ>(
-            dequant1((c4 >> (8 * u)) & 255u, (s4 >> u) & 1u, sc, step));
+        acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
+  if (lane < LPV) {
+    const int d0 = 4 * lane;
 #pragma unroll
-      for (int rr = 0; rr < kRB; ++rr) {
-        if (r0 + rr < rep) {
-          const float p = ps[(r0 + rr) * kChunk + (t - t0)];
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<float4*>(red + (warp * R + r) * HD + d0) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
 #pragma unroll
-          for (int u = 0; u < 4; ++u) acc[rr][u] = fmaf(p, vv[u], acc[rr][u]);
-        }
+  for (int off = R; off < 32; off <<= 1)
+    l_part += __shfl_xor_sync(0xffffffffu, l_part, off);
+  if (lane < R) l_s[warp * R + lane] = l_part;
+  if (tid == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) m_s[r] = m_run[r];
+  __syncthreads();
+
+  const int rows = min(R, rep - r0);
+  const long long slot = (long long)bg * n_split + split;
+  for (int e = tid; e < rows * HD; e += kKvThreads) {
+    const int r = e / HD, d = e % HD;
+    float s = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKvWarps; ++w) {
+      s += red[(w * R + r) * HD + d];
+      l += l_s[w * R + r];
+    }
+    if (n_split == 1) {
+      out[((long long)bg * rep + r0 + r) * HD + d] = s / fmaxf(l, kLFloor);
+    } else {
+      part_acc[(slot * rep + r0 + r) * HD + d] = s;
+      if (d == 0) {
+        part_ml[(slot * rep + r0 + r) * 2] = m_s[r];
+        part_ml[(slot * rep + r0 + r) * 2 + 1] = l;
       }
     }
-#pragma unroll
-    for (int rr = 0; rr < kRB; ++rr)
-      *reinterpret_cast<float4*>(&red[(grp * kRB + rr) * HD + d0]) =
-          make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
-    __syncthreads();
-    for (int e = tid; e < kRB * HD; e += kDThreads) {
-      const int rr = e / HD, d = e % HD, r = r0 + rr;
-      if (r >= rep) continue;
-      float s = 0.f;
-#pragma unroll 8
-      for (int gi = 0; gi < GROUPS; ++gi) s += red[(gi * kRB + rr) * HD + d];
-      if (n_split == 1) {
-        out[((long long)bg * rep + r) * HD + d] = s / fmaxf(ml[2 * r + 1], kLFloor);
-      } else {
-        part_acc[(slot * rep + r) * HD + d] = s;
-        if (d == 0) {
-          part_ml[(slot * rep + r) * 2] = ml[2 * r];
-          part_ml[(slot * rep + r) * 2 + 1] = ml[2 * r + 1];
-        }
-      }
-    }
-    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kDThreads)
+__global__ void __launch_bounds__(kKvThreads)
 kvdq_combine_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml, float* __restrict__ out,
                     int n_split, int rep, int hd) {
   const int bg = blockIdx.x;
-  for (int e = threadIdx.x; e < rep * hd; e += kDThreads) {
+  for (int e = threadIdx.x; e < rep * hd; e += kKvThreads) {
     const int r = e / hd, d = e % hd;
     const float* mlp = part_ml + ((long long)bg * n_split * rep + r) * 2;
     float mx = kNegInf;
@@ -890,24 +1277,38 @@ kvdq_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// log2 of the widest copy (16, 8, 4 or 2 bytes) that divides a sign row of
+// hd/8 bytes, its base and its three strides (the wrapper checks 2)
+int sign_log_width(const KvView& v, int hd) {
+  for (int lw = 4; lw >= 2; --lw) {
+    const int w = 1 << lw;
+    if ((hd / 8) % w == 0 && reinterpret_cast<uintptr_t>(v.signs) % w == 0 &&
+        v.sb % w == 0 && v.sg % w == 0 && v.st % w == 0)
+      return lw;
+  }
+  return 1;
+}
+
 template <int HD, typename TQ>
 cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
                         const KvView& vc, float* out, float* part_acc,
-                        float* part_ml, int B, int G, int rep, int T, int pos,
-                        int n_split, cudaStream_t stream) {
-  const int smem = kvdq_smem_floats(rep, HD) * 4;
+                        float* part_ml, int B, int G, int rep, int live,
+                        int n_split, int span, cudaStream_t stream) {
+  auto kernel = kvdq_partial_kernel<HD, TQ>;
+  const int smem = kv_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      kvdq_partial_kernel<HD, TQ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const float step = 16.0f / 254.0f;
-  kvdq_partial_kernel<HD, TQ><<<dim3((unsigned)(B * G), (unsigned)n_split),
-                                kDThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), qst[0], qst[1], qst[2], kc, vc, out,
-      part_acc, part_ml, G, rep, T, pos, 1.0f / sqrtf((float)HD), step);
+  const int sw = sign_log_width(kc, HD), vw = sign_log_width(vc, HD);
+  const int n_rb = (rep + kKvRows - 1) / kKvRows;
+  kernel<<<dim3((unsigned)(B * G * n_rb), (unsigned)n_split), kKvThreads,
+           smem, stream>>>(
+      static_cast<const TQ*>(q), qst[0], qst[1], qst[2], kc, vc,
+      sw < vw ? sw : vw, out, part_acc, part_ml, G, rep, n_rb, span, live,
+      1.0f / sqrtf((float)HD), 16.0f / 254.0f);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  kvdq_combine_kernel<<<(unsigned)(B * G), kDThreads, 0, stream>>>(
+  kvdq_combine_kernel<<<(unsigned)(B * G), kKvThreads, 0, stream>>>(
       part_acc, part_ml, out, n_split, rep, HD);
   return cudaGetLastError();
 }
@@ -916,14 +1317,89 @@ template <typename TQ>
 cudaError_t dispatch_kvdq(const void* q, const long long* qst,
                           const KvView& kc, const KvView& vc, float* out,
                           float* part_acc, float* part_ml, int B, int G,
-                          int rep, int hd, int T, int pos, int n_split,
+                          int rep, int hd, int live, int n_split, int span,
                           cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_kvdq<16, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, T, pos, n_split, s);
-    case 32: return launch_kvdq<32, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, T, pos, n_split, s);
-    case 64: return launch_kvdq<64, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, T, pos, n_split, s);
-    case 128: return launch_kvdq<128, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, T, pos, n_split, s);
+    case 16: return launch_kvdq<16, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
+    case 32: return launch_kvdq<32, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
+    case 64: return launch_kvdq<64, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
+    case 128: return launch_kvdq<128, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int HD, typename TQ>
+int kvdq_slots() {
+  int dev = 0, sms = 0, per_sm = 0;
+  auto kernel = kvdq_partial_kernel<HD, TQ>;
+  const int smem = kv_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kKvThreads, smem);
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
+}
+
+template <typename TQ>
+int kvdq_slots_hd(int hd) {
+  switch (hd) {
+    case 16: return kvdq_slots<16, TQ>();
+    case 32: return kvdq_slots<32, TQ>();
+    case 64: return kvdq_slots<64, TQ>();
+    case 128: return kvdq_slots<128, TQ>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// The check of dequant4 (and, for bf16, of dequant4_bf16x2) against
+// dequant1 + round_as: every element of contiguous (rows, hd) codes /
+// (rows, hd/8) signs / (rows,) scales, both ways; each row takes the fast
+// form where its scale allows it.
+template <typename TQ>
+__global__ void kv_dequant_rows_kernel(const uint8_t* __restrict__ codes,
+                                       const uint8_t* __restrict__ signs,
+                                       const float* __restrict__ scale,
+                                       float* __restrict__ got,
+                                       float* __restrict__ want,
+                                       long long rows, int hd, float step) {
+  const long long n = rows * (hd / 4);
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long row = e / (hd / 4);
+    const int d0 = 4 * (int)(e % (hd / 4));
+    const uint32_t w =
+        *reinterpret_cast<const uint32_t*>(codes + row * hd + d0);
+    const uint32_t sg = signs[row * (hd / 8) + (d0 >> 3)] >> (d0 & 7);
+    const float sc = scale[row];
+    float v[4];
+    uint32_t bb[2] = {0u, 0u};
+    if (sc >= kKvFastScale) {
+      dequant4<TQ, true>(w, sg, sc, step, v);
+      dequant4_bf16x2<true>(w, sg, sc, step, bb);
+    } else {
+      dequant4<TQ, false>(w, sg, sc, step, v);
+      dequant4_bf16x2<false>(w, sg, sc, step, bb);
+    }
+    if constexpr (!std::is_same<TQ, float>::value) {
+      // the packed pairs QK^T's MMAs read must be the same values: any
+      // difference turns got into a NaN that the bitwise check reports
+      const uint32_t unpacked[4] = {bb[0] << 16, bb[0] & 0xffff0000u,
+                                    bb[1] << 16, bb[1] & 0xffff0000u};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (unpacked[u] != __float_as_uint(v[u]))
+          v[u] = __uint_as_float(0x7fc00000u);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      got[row * hd + d0 + u] = v[u];
+      want[row * hd + d0 + u] = round_as<TQ>(
+          dequant1((w >> (8 * u)) & 255u, (sg >> u) & 1u, sc, step));
+    }
   }
 }
 
@@ -963,31 +1439,69 @@ int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
 // B11.  q (B, G, rep, hd) f32 or bf16; each cache operand (B, G, T, ·):
 // codes uint8 (·, hd) with 16-byte aligned rows, signs uint8 (·, hd/8) with
 // 2-byte aligned rows, scale f32 (·, 1); out (B, G, rep, hd) f32
-// contiguous; hd in {16, 32, 64, 128}.
-// n_split = ceil(min(T, pos + 1) / 256) blocks per (b, g); with more than
-// one, part_acc (B·G, n_split, rep, hd) and part_ml (B·G, n_split, rep, 2)
-// are f32 scratch.
+// contiguous; hd in {16, 32, 64, 128}.  The tokens j < live = min(T,
+// pos + 1) go in n_split spans of `span` tokens (the last one shorter), one
+// block each for every (b, g) and block of kKvRows query rows; with more
+// than one split, part_acc (B·G, n_split, rep, hd) and part_ml (B·G,
+// n_split, rep, 2) are f32 scratch.
 int kv_dequant_decode_attention_fwd(
     const void* q, const long long* q_st, const void* ck, const long long* ck_st,
     const void* sk, const long long* sk_st, const void* lk,
     const long long* lk_st, const void* cv, const long long* cv_st,
     const void* sv, const long long* sv_st, const void* lv,
     const long long* lv_st, float* out, float* part_acc, float* part_ml,
-    int batch, int kv_heads, int rep, int hd, int seq, int pos, int n_split,
-    int bf16, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || rep <= 0 || seq <= 0 || pos < 0 ||
-      hd < 16 || hd > 128 || (hd & (hd - 1)) || n_split <= 0)
+    int batch, int kv_heads, int rep, int hd, int live, int n_split,
+    int span, int bf16, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || rep <= 0 || live <= 0 || span <= 0 ||
+      hd < 16 || hd > 128 || (hd & (hd - 1)) || n_split <= 0 ||
+      (long long)(n_split - 1) * span >= live ||
+      (long long)n_split * span < live)
     return (int)cudaErrorInvalidValue;
   const KvView kc = make_view(ck, ck_st, sk, sk_st, lk, lk_st);
   const KvView vc = make_view(cv, cv_st, sv, sv_st, lv, lv_st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? (int)dispatch_kvdq<__nv_bfloat16>(q, q_st, kc, vc, out,
                                                   part_acc, part_ml, batch,
-                                                  kv_heads, rep, hd, seq, pos,
-                                                  n_split, s)
+                                                  kv_heads, rep, hd, live,
+                                                  n_split, span, s)
               : (int)dispatch_kvdq<float>(q, q_st, kc, vc, out, part_acc,
                                           part_ml, batch, kv_heads, rep, hd,
-                                          seq, pos, n_split, s);
+                                          live, n_split, span, s);
+}
+
+// Blocks of B11's partial kernel the card runs at once (SMs times blocks an
+// SM) for head dim hd and q's type, a negative cudaError_t on failure; and
+// its tiling: tokens a tile (a span is best whole tiles) and query rows a
+// block.
+int kv_dequant_decode_attention_slots(int hd, int bf16, int* tile,
+                                      int* rows) {
+  *tile = kKvTile;
+  *rows = kKvRows;
+  return bf16 ? kvdq_slots_hd<__nv_bfloat16>(hd) : kvdq_slots_hd<float>(hd);
+}
+
+// B11's dequantize on its own, for the check that it equals the previous
+// form bit for bit: contiguous (rows, hd) codes, (rows, hd/8) signs, (rows,)
+// scales -> got (dequant4) and want (dequant1 + round_as), both (rows, hd)
+// f32; bf16 = 1 rounds as for a bf16 q.
+int kv_dequant_rows_f32(const void* codes, const void* signs,
+                        const float* scale, float* got, float* want,
+                        long long rows, int hd, int bf16, void* stream) {
+  if (rows <= 0 || hd < 16 || hd % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = rows * (hd / 4);
+  const long long need = (n + 255) / 256;
+  const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+  const float step = 16.0f / 254.0f;
+  if (bf16)
+    kv_dequant_rows_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(signs),
+        scale, got, want, rows, hd, step);
+  else
+    kv_dequant_rows_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(signs),
+        scale, got, want, rows, hd, step);
+  return (int)cudaGetLastError();
 }
 
 const char* attention_cuda_error_string(int err) {

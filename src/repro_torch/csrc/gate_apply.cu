@@ -73,18 +73,34 @@
 //     so that its accumulators of two n-tiles are one float4 of C: A and C
 //     cross HBM once, with no shared-memory staging.
 //
-// gemm_planes_mid_kernel replaces gemm_planes_mid (_gemm_mid_kernel,
-// pl.pallas_call at :153): the batched left contraction over an (O, K, I)
-// stack, C[o] = U A[o], with U untransposed — a gate whose qubit axes sit
-// together but not minor-most, applied with no transpose.  Bound by bytes
-// like the GEMM above (each amplitude in and out once, 4K FMAs).  The inner
-// axis is the contiguous one, so one thread owns one inner column (o, i):
-// walking k, the 32 threads of a warp read 32 neighbouring floats of row k
-// (coalesced), and each value feeds every output row's sum at once, so A is
-// read from HBM exactly once for K <= 32.  U^T (2 K^2 floats) lives in
-// shared memory and is read as broadcast float4s (four output rows a load).
-// Above K = 32 the output rows go in passes of 32 (registers hold 64
-// running sums) and A is read once a pass, mostly from L2.
+// gemm_planes_mid_ring_kernel (K <= 32) and gemm_planes_mid_kernel (K >= 64)
+// replace gemm_planes_mid (_gemm_mid_kernel, pl.pallas_call at :153): the
+// batched left contraction over an (O, K, I) stack, C[o] = U A[o], with U
+// untransposed — a gate whose qubit axes sit together but not minor-most,
+// applied with no transpose.  Bound by bytes like the GEMM above (each
+// amplitude in and out once, 4K FMAs: at (1, 32, 2^17) 0.020 ms of bytes
+// against 0.016 ms of FMAs), and for the same reason the load and the FMAs
+// must overlap.  The ring body does for B7 what gemm_planes_ring_kernel does
+// for B1/B6, with the same cp.async helpers and ring_walk's stage rotation:
+//   * persistent blocks walk work units (o, a tile of TI inner columns) in
+//     order; a unit's slab is K rows of TI contiguous floats of each plane,
+//     copied as 16-byte chunks (4-byte copies where I or the planes are not
+//     16-byte aligned; columns past a ragged I are never copied or stored)
+//     while the previous slab's FMAs run;
+//   * a thread owns kMidCols neighbouring columns of the slab (one 8-byte
+//     load of each plane a row; neighbouring threads on neighbouring
+//     columns, so no bank conflicts) and kMidRows of their output rows, so
+//     K / kMidRows threads share a column and the accumulators stay at
+//     2 kMidRows kMidCols registers; U^T (2 K^2 floats) is read from shared
+//     memory as broadcast float4s, four output rows a load, and each output
+//     row is stored straight to global memory, coalesced (8-byte stores
+//     where I is even).  The sum over k runs in order with the previous
+//     body's four FMAs a term (GATE_ATOL, 1e-4, is its tolerance).
+// Measured on one H100 (PERF.md §6): at (1, 32, 2^17) the FMAs alone take
+// 0.033 ms and the stream alone 0.029; together 0.037, under torch.matmul.
+// At K >= 64 one thread owns one inner column (o, i) and reads its K values
+// from HBM directly, the output rows in passes of 32; it is off the default
+// fusion width (max_fused_qubits 5) and untimed.
 //
 // diag_apply_kernel replaces diag_apply (_diag_kernel, pl.pallas_call at
 // :186): (R, K) planes times a complex (1, K) diagonal, elementwise.  It
@@ -96,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -104,34 +122,14 @@ constexpr int kThreads = 256;
 
 // Elements of each plane a tile, tiles in the ring, and the most blocks an
 // SM (0: as many as fit).  The values below timed fastest at R K = 2^22 on
-// one H100 among those chip_tiles.py tries (PERF.md §6).
-constexpr int kRingTile = 2048, kRingStages = 2, kRingBlocksSM = 0;  // ring
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared; only the first `bytes` are read, the
-// rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+// one H100 among those chip_tiles.py tries (PERF.md §6); it builds the
+// source with others by defining RING_TILING.
+#ifndef RING_TILING
+#define RING_TILING 2048, 2, 0
+#endif
+constexpr int kRingTiling[] = {RING_TILING};
+constexpr int kRingTile = kRingTiling[0], kRingStages = kRingTiling[1],
+              kRingBlocksSM = kRingTiling[2];
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -181,36 +179,27 @@ gemm_planes_ring_kernel(const float* __restrict__ ar,
     return ((long long)blockIdx.x + (long long)i * gridDim.x) * T;
   };
 
-  // this block's tile i into stage i % S, as one commit group (empty past
-  // the last tile, so that every wait below counts the same groups)
+  // this block's tile i into stage i % S
   auto copy_tile = [&](int i) {
-    if (i < mine) {
-      const long long base = tile_base(i);
-      const int cnt = (int)(n - base < T ? n - base : T);
-      float* dr = ring + (i % S) * 2 * T;
-      float* di = dr + T;
-      if (vec4) {
-        for (int e = 4 * tid; e < cnt; e += 4 * kThreads) {
-          const int bytes = 4 * (cnt - e < 4 ? cnt - e : 4);
-          cp_async16(dr + e, lar + base + e, bytes);
-          cp_async16(di + e, lai + base + e, bytes);
-        }
-      } else {
-        for (int e = tid; e < cnt; e += kThreads) {
-          cp_async4(dr + e, lar + base + e);
-          cp_async4(di + e, lai + base + e);
-        }
+    const long long base = tile_base(i);
+    const int cnt = (int)(n - base < T ? n - base : T);
+    float* dr = ring + (i % S) * 2 * T;
+    float* di = dr + T;
+    if (vec4) {
+      for (int e = 4 * tid; e < cnt; e += 4 * kThreads) {
+        const int bytes = 4 * (cnt - e < 4 ? cnt - e : 4);
+        cp_async16(dr + e, lar + base + e, bytes);
+        cp_async16(di + e, lai + base + e, bytes);
+      }
+    } else {
+      for (int e = tid; e < cnt; e += kThreads) {
+        cp_async4(dr + e, lar + base + e);
+        cp_async4(di + e, lai + base + e);
       }
     }
-    cp_async_commit();
   };
 
-#pragma unroll
-  for (int i = 0; i < S - 1; ++i) copy_tile(i);
-  for (int i = 0; i < mine; ++i) {
-    cp_async_wait<S - 2>();  // this thread's copies of tile i have landed
-    __syncthreads();         // everyone's have; stage (i - 1) % S is free
-    copy_tile(i + S - 1);
+  ring_walk<S>(mine, copy_tile, [&](int i) {
     const long long base = tile_base(i);
     const int cnt = (int)(n - base < T ? n - base : T);
     const float* sar = ring + (i % S) * 2 * T;
@@ -246,7 +235,7 @@ gemm_planes_ring_kernel(const float* __restrict__ ar,
       lcr[base + e] = rr - ii;
       lci[base + e] = ri + ir;
     }
-  }
+  });
 }
 
 template <int K>
@@ -428,10 +417,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 // Work units: a warp takes 16 rows by K / NC output columns at a time (NC
 // warps share a row tile), WARPS warps a block.  The values below timed
 // fastest at R K = 2^22 on one H100 among those chip_tiles.py tries
-// (PERF.md §6); at K = 128 more warps or fewer accumulators a warp did
-// not help: mma.sync's TF32 rate sets the pace.
-constexpr int tc_nc(int K) { return K >= 128 ? 1 : 2; }
-constexpr int tc_warps(int K) { return K >= 128 ? 8 : 16; }
+// (PERF.md §6; TC_TILING is NC, then warps, at K = 128 and at K = 64); at
+// K = 128 more warps or fewer accumulators a warp did not help: mma.sync's
+// TF32 rate sets the pace.
+#ifndef TC_TILING
+#define TC_TILING 1, 8, 2, 16
+#endif
+constexpr int kTcTiling[] = {TC_TILING};
+constexpr int tc_nc(int K) { return K >= 128 ? kTcTiling[0] : kTcTiling[2]; }
+constexpr int tc_warps(int K) {
+  return K >= 128 ? kTcTiling[1] : kTcTiling[3];
+}
 
 template <int K, int NC, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32, 1)
@@ -578,7 +574,204 @@ cudaError_t launch_tc(const float* ar, const float* ai, const float* br,
   return cudaGetLastError();
 }
 
-// -- gemm_planes_mid ---------------------------------------------------------
+// -- gemm_planes_mid at K <= 32: slabs of A streamed through a ring --------
+
+// Output rows a thread at most (a column's K rows go to K / kMidRows
+// threads), neighbouring columns a thread, and slabs in the ring.  The
+// values below timed fastest at (O, K, I) = (1, 32, 2^17) on one H100 among
+// those chip_tiles.py tries (PERF.md §6); it builds the source with others
+// by defining MID_TILING.
+#ifndef MID_TILING
+#define MID_TILING 4, 2, 2
+#endif
+constexpr int kMidTiling[] = {MID_TILING};
+constexpr int kMidRows = kMidTiling[0], kMidCols = kMidTiling[1],
+              kMidStages = kMidTiling[2];
+
+template <int K>
+struct MidShape {
+  static constexpr int RT = K < kMidRows ? K : kMidRows;  // rows a thread
+  static constexpr int P = K / RT;                // threads on one column
+  static constexpr int TC = kThreads / P;         // threads on one row
+  static constexpr int TI = TC * kMidCols;        // columns a slab
+};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
+                            const float* __restrict__ ai,
+                            const float* __restrict__ ur,
+                            const float* __restrict__ ui, long long u_row,
+                            long long u_col, float* __restrict__ cr,
+                            float* __restrict__ ci, long long outer,
+                            long long inner, int vec4) {
+  constexpr int RT = MidShape<K>::RT, TC = MidShape<K>::TC;
+  constexpr int TI = MidShape<K>::TI, CT = kMidCols;
+  constexpr int S = kMidStages, SLAB = K * TI;
+  static_assert(K <= 32 && K % RT == 0 && TC >= 32 && TI % 4 == 0 &&
+                (CT == 1 || CT == 2) && S >= 2,
+                "a warp shares its output rows; whole float4 chunks");
+  extern __shared__ __align__(16) float smem[];
+  float* sur = smem;  // sur[k * K + j] = Re U[j][k]
+  float* sui = sur + K * K;
+  float* ring = sui + K * K;  // stage s: the slab's Ar, then its Ai, at 2 SLAB s
+
+  const int tid = threadIdx.x;
+  for (int e = tid; e < K * K; e += kThreads) {
+    const int k = e / K, j = e % K;
+    sur[e] = ur[j * u_row + k * u_col];
+    sui[e] = ui[j * u_row + k * u_col];
+  }
+  // sur is published by ring_walk's first barrier
+  const int c = (tid % TC) * CT;   // the first slab column this thread owns
+  const int j0 = (tid / TC) * RT;  // and its first output row
+
+  // unit u = (o, inner tile): K rows of TI contiguous columns of each plane
+  const long long tiles = (inner + TI - 1) / TI;
+  const long long units = outer * tiles;
+  const int mine = blockIdx.x < units
+      ? (int)((units - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+  auto unit = [&](int i, long long& base, int& cnt) {
+    const long long u = (long long)blockIdx.x + (long long)i * gridDim.x;
+    const long long o = u / tiles, i0 = (u - o * tiles) * TI;
+    base = o * K * inner + i0;  // element (o, 0, i0) of a plane
+    cnt = (int)(inner - i0 < TI ? inner - i0 : TI);
+  };
+
+  auto copy_slab = [&](int i) {
+    long long base;
+    int cnt;
+    unit(i, base, cnt);
+    float* dr = ring + (i % S) * 2 * SLAB;
+    float* di = dr + SLAB;
+    if (vec4) {
+      for (int e = tid; e < SLAB / 4; e += kThreads) {
+        const int k = e / (TI / 4), col = 4 * (e % (TI / 4));
+        if (col < cnt) {
+          const int bytes = 4 * (cnt - col < 4 ? cnt - col : 4);
+          const long long g = base + k * inner + col;
+          cp_async16(dr + k * TI + col, ar + g, bytes);
+          cp_async16(di + k * TI + col, ai + g, bytes);
+        }
+      }
+    } else {
+      for (int e = tid; e < SLAB; e += kThreads) {
+        const int k = e / TI, col = e % TI;
+        if (col < cnt) {
+          const long long g = base + k * inner + col;
+          cp_async4(dr + k * TI + col, ar + g);
+          cp_async4(di + k * TI + col, ai + g);
+        }
+      }
+    }
+  };
+
+  ring_walk<S>(mine, copy_slab, [&](int i) {
+    long long base;
+    int cnt;
+    unit(i, base, cnt);
+    if (c >= cnt) return;
+    const float* xr = ring + (i % S) * 2 * SLAB + c;
+    const float* xi = xr + SLAB;
+    float accr[CT][RT], acci[CT][RT];
+#pragma unroll
+    for (int h = 0; h < CT; ++h)
+#pragma unroll
+      for (int j = 0; j < RT; ++j) accr[h][j] = acci[h][j] = 0.f;
+    auto step = [&](const float (&x_r)[CT], const float (&x_i)[CT],
+                    float u_r, float u_i, int j) {
+#pragma unroll
+      for (int h = 0; h < CT; ++h) {
+        accr[h][j] = fmaf(u_r, x_r[h], accr[h][j]);
+        accr[h][j] = fmaf(-u_i, x_i[h], accr[h][j]);
+        acci[h][j] = fmaf(u_r, x_i[h], acci[h][j]);
+        acci[h][j] = fmaf(u_i, x_r[h], acci[h][j]);
+      }
+    };
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float x_r[CT], x_i[CT];
+      if constexpr (CT == 2) {
+        const float2 a = *reinterpret_cast<const float2*>(xr + k * TI);
+        const float2 b = *reinterpret_cast<const float2*>(xi + k * TI);
+        x_r[0] = a.x; x_r[1] = a.y;
+        x_i[0] = b.x; x_i[1] = b.y;
+      } else {
+        x_r[0] = xr[k * TI];
+        x_i[0] = xi[k * TI];
+      }
+      if constexpr (RT >= 4) {
+        // four output rows a broadcast float4 of each U^T plane
+        const float4* u4 = reinterpret_cast<const float4*>(sur + k * K + j0);
+        const float4* v4 = reinterpret_cast<const float4*>(sui + k * K + j0);
+#pragma unroll
+        for (int q = 0; q < RT / 4; ++q) {
+          const float4 u = u4[q], v = v4[q];
+          step(x_r, x_i, u.x, v.x, 4 * q + 0);
+          step(x_r, x_i, u.y, v.y, 4 * q + 1);
+          step(x_r, x_i, u.z, v.z, 4 * q + 2);
+          step(x_r, x_i, u.w, v.w, 4 * q + 3);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < RT; ++j)
+          step(x_r, x_i, sur[k * K + j0 + j], sui[k * K + j0 + j], j);
+      }
+    }
+    // row j0 + j of the output slab, straight from registers (coalesced;
+    // two columns as one 8-byte store where I keeps them aligned)
+    float* pr = cr + base + (long long)j0 * inner + c;
+    float* pi = ci + base + (long long)j0 * inner + c;
+    if (CT == 2 && inner % 2 == 0 && c + 2 <= cnt) {
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        *reinterpret_cast<float2*>(pr + j * inner) =
+            make_float2(accr[0][j], accr[CT - 1][j]);
+        *reinterpret_cast<float2*>(pi + j * inner) =
+            make_float2(acci[0][j], acci[CT - 1][j]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+#pragma unroll
+      for (int h = 0; h < CT; ++h)
+        if (h == 0 || c + h < cnt) {
+          pr[j * inner + h] = accr[h][j];
+          pi[j * inner + h] = acci[h][j];
+        }
+  });
+}
+
+template <int K>
+cudaError_t launch_mid_ring(const float* ar, const float* ai,
+                            const float* ur, const float* ui, long long u_row,
+                            long long u_col, float* cr, float* ci,
+                            long long outer, long long inner, int vec4,
+                            cudaStream_t stream) {
+  auto kernel = gemm_planes_mid_ring_kernel<K>;
+  constexpr int TI = MidShape<K>::TI;
+  const int smem = (2 * K * K + 2 * kMidStages * K * TI) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long units = outer * ((inner + TI - 1) / TI);
+  long long grid = (long long)sms * per_sm;
+  if (grid > units) grid = units;
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+      ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4);
+  return cudaGetLastError();
+}
+
+// -- gemm_planes_mid at K >= 64: one inner column a thread -------------------
 
 constexpr int kMidThreads = 256;
 
@@ -591,7 +784,8 @@ gemm_planes_mid_kernel(const float* __restrict__ ar,
                        long long u_col, float* __restrict__ cr,
                        float* __restrict__ ci, long long outer,
                        long long inner) {
-  constexpr int JC = K < 32 ? K : 32;  // output rows a pass
+  constexpr int JC = 32;  // output rows a pass
+  static_assert(K >= 64, "K <= 32 runs gemm_planes_mid_ring_kernel");
   extern __shared__ __align__(16) float smem[];
   float* sur = smem;       // sur[k * K + j] = Re U[j][k]
   float* sui = smem + K * K;
@@ -615,27 +809,21 @@ gemm_planes_mid_kernel(const float* __restrict__ ar,
       for (int k = 0; k < K; ++k) {
         const float xr = ar[base + k * inner];
         const float xi = ai[base + k * inner];
-        auto step = [&](float u_r, float u_i, int j) {
-          accr[j] = fmaf(u_r, xr, accr[j]);
-          accr[j] = fmaf(-u_i, xi, accr[j]);
-          acci[j] = fmaf(u_r, xi, acci[j]);
-          acci[j] = fmaf(u_i, xr, acci[j]);
-        };
-        if constexpr (JC >= 4) {
-          const float4* u4 = reinterpret_cast<const float4*>(sur + k * K + j0);
-          const float4* v4 = reinterpret_cast<const float4*>(sui + k * K + j0);
+        const float4* u4 = reinterpret_cast<const float4*>(sur + k * K + j0);
+        const float4* v4 = reinterpret_cast<const float4*>(sui + k * K + j0);
 #pragma unroll
-          for (int q = 0; q < JC / 4; ++q) {
-            const float4 u = u4[q], v = v4[q];
-            step(u.x, v.x, 4 * q + 0);
-            step(u.y, v.y, 4 * q + 1);
-            step(u.z, v.z, 4 * q + 2);
-            step(u.w, v.w, 4 * q + 3);
+        for (int q = 0; q < JC / 4; ++q) {
+          const float4 u = u4[q], v = v4[q];
+          const float us[4] = {u.x, u.y, u.z, u.w};
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int j = 4 * q + h;
+            accr[j] = fmaf(us[h], xr, accr[j]);
+            accr[j] = fmaf(-vs[h], xi, accr[j]);
+            acci[j] = fmaf(us[h], xi, acci[j]);
+            acci[j] = fmaf(vs[h], xr, acci[j]);
           }
-        } else {
-#pragma unroll
-          for (int j = 0; j < JC; ++j)
-            step(sur[k * K + j0 + j], sui[k * K + j0 + j], j);
         }
       }
 #pragma unroll
@@ -781,19 +969,20 @@ int gemm_planes_f32(const float* ar, const float* ai, const float* br,
 }
 
 // B7.  A is a contiguous (O, K, I) stack; U (K, K) any strides; C is
-// written contiguous (O, K, I).
+// written contiguous (O, K, I).  vec4 = both A planes 16-byte aligned and
+// I % 4 == 0 (every row of every slab is then 16-byte aligned).
 int gemm_planes_mid_f32(const float* ar, const float* ai, const float* ur,
                         const float* ui, long long u_row, long long u_col,
                         float* cr, float* ci, long long outer, int k,
-                        long long inner, void* stream) {
+                        long long inner, int vec4, void* stream) {
   if (outer <= 0 || inner <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 2: return (int)launch_mid<2>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
-    case 4: return (int)launch_mid<4>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
-    case 8: return (int)launch_mid<8>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
-    case 16: return (int)launch_mid<16>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
-    case 32: return (int)launch_mid<32>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
+    case 2: return (int)launch_mid_ring<2>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
+    case 4: return (int)launch_mid_ring<4>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
+    case 8: return (int)launch_mid_ring<8>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
+    case 16: return (int)launch_mid_ring<16>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
+    case 32: return (int)launch_mid_ring<32>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
     case 64: return (int)launch_mid<64>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
     case 128: return (int)launch_mid<128>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
     default: return (int)cudaErrorInvalidValue;

@@ -5,7 +5,8 @@ plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Builds happen at first use, never at import, into
 ``REPRO_TORCH_BUILD_DIR`` (default: ``_build/`` beside the package, which
 ``.gitignore`` lists).  The library's file name carries a hash of its
-source and flags, so an edited source never loads a stale build.
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source never loads a stale build.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -58,7 +58,7 @@ def _kernels() -> dict:
                             [p, p, p, p, i64, i64, p, p, i64, i32, i32, p]),
             "gemm_planes_mid": ("gemm_planes_mid_f32",
                                 [p, p, p, p, i64, i64, p, p, i64, i32, i64,
-                                 p]),
+                                 i32, p]),
             "diag_apply": ("diag_apply_f32",
                            [p, p, p, p, p, p, i64, i64, i32, p]),
         }, "repro_cuda_error_string")
@@ -193,7 +193,8 @@ def gemm_planes_mid(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
     ci = torch.empty_like(cr)
     _launch("gemm_planes_mid", dev, ar.data_ptr(), ai.data_ptr(),
             br.data_ptr(), bi.data_ptr(), br.stride(0), br.stride(1),
-            cr.data_ptr(), ci.data_ptr(), O, K, I)
+            cr.data_ptr(), ci.data_ptr(), O, K, I,
+            int(_aligned(ar, ai) and I % 4 == 0))
     return cr, ci
 
 

@@ -19,8 +19,9 @@ scale; the kernel dequantizes in registers as ``|x| = exp2(scale -
 ``pos`` is a host int (no device sync).  q may be float32 or bfloat16; for
 a bfloat16 q the dequantized K/V and the probabilities are rounded to
 bfloat16 before their products (sums in f32), as ``repro``'s serving
-decode rounds them (the kernel rounds the unnormalised probabilities, its
-plain version the normalised ones; see ``csrc/attention.cu``).  On
+decode rounds them (the kernel rounds the unnormalised probabilities,
+relative to a block's running max, its plain version the normalised ones;
+see ``csrc/attention.cu``).  On
 a CUDA tensor both launch the hand-written Hopper kernel in
 ``csrc/attention.cu`` (see the note there for what bounds it); on a CPU
 tensor they run the plain versions in :mod:`.ref`.  Any other device
@@ -40,16 +41,16 @@ from .ref import (KV_RANGE, KV_STEP, kv_dequant_decode_attention_gqa_ref,
                   kv_dequant_decode_attention_ref)
 
 __all__ = ["kv_dequant_decode_attention", "kv_dequant_decode_attention_gqa",
-           "KV_RANGE", "KV_STEP", "CHUNK", "launch_counts",
+           "KV_RANGE", "KV_STEP", "splits", "grid", "launch_counts",
            "reset_launch_counts"]
-
-#: cached tokens one block of the kernel attends over (its T split)
-CHUNK = 256
 
 #: kernel name -> launches since the last reset
 launch_counts: dict[str, int] = {"kv_dequant_decode_attention": 0}
 
 _fns = None    # C entry points, bound at first CUDA call
+#: (id of the entry point, device, hd, bf16) -> (blocks the card runs at
+#: once, tokens a tile, query rows a block), from the library
+_grids: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -65,8 +66,49 @@ def _kernels() -> dict:
             "kv_dequant_decode_attention": (
                 "kv_dequant_decode_attention_fwd",
                 [p, st] + [p, st] * 6 + [p, p, p] + [i32] * 8 + [p]),
+            "slots": ("kv_dequant_decode_attention_slots",
+                      [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]),
         }, "attention_cuda_error_string")
     return _fns
+
+
+def splits(blocks: int, live: int, slots: int, tile: int
+           ) -> tuple[int, int]:
+    """``(n_split, span)`` of the kernel's grid: the ``live`` cached tokens
+    in ``n_split`` spans of ``span`` tokens (whole tiles of ``tile``; the
+    last span shorter), one block each for every one of the ``blocks`` (b,
+    g, row block) triples, as many spans as let the grid fit in the
+    ``slots`` blocks the card runs at once (at least one, at most one a
+    tile)."""
+    n = max(1, min(slots // blocks, -(-live // tile)))
+    span = -(-(-(-live // n)) // tile) * tile
+    return -(-live // span), span
+
+
+def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int
+             ) -> tuple[int, int, int]:
+    key = (id(fns["slots"]), dev.index, hd, bf16)
+    if key not in _grids:
+        tile, rows = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(dev):
+            n = fns["slots"](hd, bf16, ctypes.byref(tile), ctypes.byref(rows))
+        if n <= 0:
+            raise RuntimeError(f"kv_dequant_decode_attention: occupancy query "
+                               f"failed: {fns['error'](-n).decode()}")
+        _grids[key] = (n, tile.value, rows.value)
+    return _grids[key]
+
+
+def grid(heads: int, rep: int, hd: int, live: int, q_dtype: torch.dtype,
+         dev: torch.device) -> tuple[int, int, int]:
+    """``(n_split, span, tile)`` of the kernel's launch on CUDA device
+    ``dev`` for ``heads`` (batch, kv head) pairs of ``rep`` query rows of
+    ``hd`` dims in ``q_dtype`` over ``live`` cached tokens: the spans of
+    :func:`splits` and the tokens a tile, both as the built kernel takes
+    them."""
+    slots, tile, rows = _grid_of(_kernels(), dev, hd,
+                                 int(q_dtype == torch.bfloat16))
+    return splits(heads * -(-rep // rows), live, slots, tile) + (tile,)
 
 
 def _strides(t: torch.Tensor):
@@ -98,7 +140,9 @@ def _launch(q: torch.Tensor, cache: tuple, pos: int,
     if q.stride(3) != 1:
         raise ValueError("kv_dequant_decode_attention: q's head axis must "
                          "be contiguous")
-    n_split = -(-min(T, pos + 1) // CHUNK)
+    live = min(T, pos + 1)
+    n_split, span, _ = grid(B * G, rep, hd, live, q.dtype, dev)
+    fns = _kernels()
     out = torch.empty((B, G, rep, hd), dtype=torch.float32, device=dev)
     part_acc = part_ml = None
     if n_split > 1:
@@ -109,13 +153,12 @@ def _launch(q: torch.Tensor, cache: tuple, pos: int,
     args = []
     for t in cache:
         args += [t.data_ptr(), _strides(t)]
-    fns = _kernels()
     with torch.cuda.device(dev):
         rc = fns["kv_dequant_decode_attention"](
             q.data_ptr(), _strides(q), *args, out.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(), B, G, rep, hd,
-            T, pos, n_split, int(q.dtype == torch.bfloat16),
+            live, n_split, span, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kv_dequant_decode_attention kernel launch "

@@ -33,7 +33,8 @@ __all__ = ["gemm_planes_ref", "gemm_planes_batch_ref", "gemm_planes_mid_ref",
            "encode_planes_ref", "decode_planes_ref", "tile_rows_for",
            "flash_attention_ref", "flash_attention_gqa_ref",
            "kv_dequant_ref", "kv_dequant_decode_attention_ref",
-           "kv_dequant_decode_attention_gqa_ref", "NEG_INF", "KV_RANGE",
+           "kv_dequant_decode_attention_gqa_ref",
+           "kv_dequant_decode_attention_tiled_ref", "NEG_INF", "KV_RANGE",
            "KV_STEP", "KV_CODE_MAX"]
 
 CODE_MAX = 65535
@@ -350,3 +351,52 @@ def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
                                          signs_v, scale_v)]
     out = kv_dequant_decode_attention_ref(qh, *cache, pos)
     return out.reshape(B, 1, Hq, hd)
+
+
+def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
+                                          codes_v, signs_v, scale_v, pos,
+                                          span: int, tile: int
+                                          ) -> torch.Tensor:
+    """The B11 kernel's order of operations, for a check of it far tighter
+    than the bf16 bound: q (..., rep, hd); cache leaves (..., T, ·) ->
+    (..., rep, hd) f32, attending to j <= pos.  The tokens go in spans of
+    ``span`` (the kernel's splits), each walked in tiles of ``tile`` with a
+    running max m: f32 scores s, p = exp(s - m_new) in f32 (for a bf16 q
+    rounded to bf16 unnormalised, and K/V rounded to bf16, as
+    :func:`kv_dequant_decode_attention_ref` rounds them), the sum of the
+    unrounded p and the accumulator rescaled by exp(m - m_new); the spans
+    combined by their maxima.  Dot products and sums are f64, where the
+    kernel's are f32 in its own order: the two differ by f32 rounding and
+    by the odd p that rounds to its other bf16 neighbour."""
+    bf = q.dtype == torch.bfloat16
+
+    def cast(x):
+        return (x.bfloat16() if bf else x).double()
+
+    live = min(codes_k.shape[-2], int(pos) + 1)
+    k = cast(kv_dequant_ref(codes_k, signs_k, scale_k)[..., :live, :])
+    v = cast(kv_dequant_ref(codes_v, signs_v, scale_v)[..., :live, :])
+    one = torch.ones((), dtype=torch.float32, device=q.device)
+    inv = one / torch.sqrt(one * q.shape[-1])            # 1 / sqrtf(hd)
+    s = (q.double() @ k.transpose(-1, -2)).float() * inv  # (..., rep, live)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, live, span):
+        m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
+        l = torch.zeros(m.shape, dtype=torch.float64, device=q.device)
+        acc = torch.zeros(s.shape[:-1] + v.shape[-1:], dtype=torch.float64,
+                          device=q.device)
+        for t0 in range(s0, min(s0 + span, live), tile):
+            sc = s[..., t0:min(t0 + tile, s0 + span, live)]
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new).double()
+            p = torch.exp(sc - m_new)
+            l = l * alpha + p.double().sum(-1, keepdim=True)
+            acc = acc * alpha + cast(p) @ v[..., t0:t0 + sc.shape[-1], :]
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    mx = torch.stack(ms).amax(0)
+    w = [torch.exp(m - mx).double() for m in ms]
+    return (sum(a * x for a, x in zip(accs, w))
+            / sum(l * x for l, x in zip(ls, w))).float()

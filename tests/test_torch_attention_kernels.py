@@ -212,36 +212,160 @@ def test_kvdq_bf16_plain_version_rounds_as_repro(J, B, T, G, rep, hd, pos):
     assert bf16_bound(torch.from_numpy(new), torch.from_numpy(want), v)
 
 
+#: the H100 build of B11's partial kernel: the blocks it runs at once (132
+#: SMs, two blocks an SM), tokens a tile and query rows a block (the
+#: library reports them to kd.grid on a card; here they are stated)
+H100_SLOTS, H100_TILE, H100_ROWS = 264, 128, 4
+
+
+def _tiled_gqa(q, leaves, pos, slots, tile=H100_TILE):
+    """ref.kv_dequant_decode_attention_tiled_ref in the serving layout, on
+    the spans the kernel takes for ``slots`` blocks at once."""
+    B, _, Hq, hd = q.shape
+    T, G = leaves[0].shape[1:3]
+    _, span = kd.splits(B * G * -(-(Hq // G) // H100_ROWS),
+                        min(T, pos + 1), slots, tile)
+    out = ref.kv_dequant_decode_attention_tiled_ref(
+        q[:, 0].unflatten(1, (G, Hq // G)),
+        *(t.transpose(1, 2) for t in leaves), pos, span, tile)
+    return out.reshape(B, 1, Hq, hd)
+
+
 @pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+@pytest.mark.parametrize("slots", [H100_SLOTS, 4])
 def test_emulated_kvdq_bf16_kernel_within_the_bound(J, B, T, G, rep, hd,
-                                                    pos):
-    """The kernel's bf16 arithmetic, emulated: K/V rounded to bf16, f32
-    scores, per 256-token chunk p = exp(s - m_chunk) rounded to bf16
-    unnormalised with the f32 sum of the unrounded p, the chunks combined
-    in f32; against the plain version within bf16_bound (measured here:
-    max |Δ| <= 4.9e-4·max|v|, against the bound's 2^-8·max|v| = 3.9e-3)."""
+                                                    pos, slots):
+    """The kernel's bf16 arithmetic, as its plain version in its own order
+    (ref.kv_dequant_decode_attention_tiled_ref: K/V rounded to bf16, f32
+    scores, p rounded to bf16 relative to each block's running max over
+    its tiles, the splits combined), on the H100's grid and on one of few
+    splits with long spans, against the plain version within bf16_bound
+    (measured here: max |Δ| <= 4.9e-4·max|v|, against the bound's
+    2^-8·max|v| = 3.9e-3)."""
     _, _, _, leaves, q = _serving_inputs(J, B, T, G, rep, hd, pos)
-    Hq = G * rep
-    k, v = (ref.kv_dequant_ref(*leaves[i:i + 3]).bfloat16().float()
-            .transpose(1, 2) for i in (0, 3))               # (B, G, T, hd)
-    qh = q[:, 0].float().reshape(B, G, rep, hd)
-    s = qh @ k.transpose(-1, -2) * hd ** -0.5               # (B, G, rep, T)
-    live = min(T, pos + 1)
-    ms, sums, accs = [], [], []
-    for t0 in range(0, live, kd.CHUNK):
-        sc = s[..., t0:min(t0 + kd.CHUNK, live)]
-        m = sc.amax(-1, keepdim=True)
-        p = torch.exp(sc - m)
-        ms.append(m)
-        sums.append(p.sum(-1, keepdim=True))
-        accs.append(p.bfloat16().float() @ v[:, :, t0:t0 + p.shape[-1]])
-    mx = torch.stack(ms).amax(0)
-    w = [torch.exp(m - mx) for m in ms]
-    out = sum(a * x for a, x in zip(accs, w)) / sum(
-        s_ * x for s_, x in zip(sums, w))
-    got = out.reshape(B, 1, Hq, hd)
+    got = _tiled_gqa(q, leaves, pos, slots)
     want = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos)
-    assert bf16_bound(got, want, v)
+    assert bf16_bound(got, want, ref.kv_dequant_ref(*leaves[3:]))
+
+
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+@pytest.mark.parametrize("slots,tile", [(H100_SLOTS, H100_TILE), (4, 64),
+                                        (1, 1 << 20)])
+def test_tiled_plain_version_equals_the_plain_one_for_an_f32_q(
+        J, B, T, G, rep, hd, pos, slots, tile):
+    """For an f32 q nothing is rounded, so the plain version in the
+    kernel's order (spans, tiles, running max, the spans combined) is the
+    plain version up to f32 sums in another order: on the H100's grid, on
+    few spans of short tiles and on one tile of every token."""
+    _, _, _, leaves, q = _serving_inputs(J, B, T, G, rep, hd, pos)
+    q = q.float()
+    torch.testing.assert_close(
+        _tiled_gqa(q, leaves, pos, slots, tile),
+        kd.kv_dequant_decode_attention_gqa(q, *leaves, pos),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("blocks,live,slots,tile", [
+    (64, 4096, 264, 128), (64, 2049, 264, 128), (64, 2080, 264, 128),
+    (2, 65, 264, 128), (2, 64, 264, 128), (1, 1, 264, 128),
+    (300, 4096, 264, 128), (8, 4096, 264, 128), (12, 1000, 5, 128),
+    (64, 4096, 264, 64), (7, 333, 40, 32)])
+def test_splits_cover_the_live_tokens_in_whole_tiles(blocks, live, slots,
+                                                     tile):
+    """The kernel's grid: spans of whole tiles that cover [0, live) with
+    a non-empty last one, as many as fit the card's slots (one at least,
+    one a tile at most)."""
+    n, span = kd.splits(blocks, live, slots, tile)
+    assert span % tile == 0 and span > 0
+    assert (n - 1) * span < live <= n * span
+    assert 1 <= n <= max(1, slots // blocks)
+    assert n <= -(-live // tile)
+
+
+# -- the kernel's dequantize, emulated on int32 views -------------------------
+
+def _as_i64(x: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of an f32 tensor as non-negative int64."""
+    return x.view(torch.int32).long() & 0xFFFFFFFF
+
+
+def _from_i64(b: torch.Tensor) -> torch.Tensor:
+    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _bf16_rne_bits(b: torch.Tensor) -> torch.Tensor:
+    """bf16 round to nearest even by integer arithmetic on the bit pattern,
+    (x + 0x7fff + bit 16 of x) & 0xffff0000 (uint32): what dequant4's
+    cvt.rn.bf16x2.f32 does to each value, kept in its f32 container."""
+    return ((b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000) & 0xFFFFFFFF
+
+
+def _emulated_dequant(codes, signs, scale, bf16: bool) -> torch.Tensor:
+    """csrc/attention.cu::dequant4 on int views: d = float(0x4b000000 |
+    (c ^ 255)) - 2^23, x = scale - d·step (two f32 roundings), exp2, +0 where
+    d = 255, bf16 round to nearest even on the bits, the sign as bit 31."""
+    c = codes.long()
+    d = _from_i64(0x4B000000 | (c ^ 0xFF)) - 8388608.0
+    step = torch.tensor(ref.KV_STEP, dtype=torch.float32)
+    x = scale - d * step
+    mag = torch.where(d == 255.0, torch.zeros_like(x), torch.exp2(x))
+    bits = _as_i64(mag)
+    if bf16:
+        bits = _bf16_rne_bits(bits)
+    shifts = torch.arange(8)
+    neg = ((signs.long().unsqueeze(-1) >> shifts) & 1).reshape(codes.shape)
+    return _from_i64(bits | neg << 31)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_dequantize_equals_the_plain_operations_bit_for_bit(bf16):
+    """The magic-number code -> float, the sign by bit 31 and the bf16
+    rounding on the bits give the plain version's values bit for bit (bf16:
+    rounded as .bfloat16() does) over all 256 codes x both signs x scales
+    from -150 to 130; and where the kernel takes ex2.approx.ftz (scales >=
+    -100) every exp2 argument of a live code is >= -126, so flushing
+    subnormals changes nothing."""
+    scales = torch.cat([torch.arange(-150.0, 130.0, 0.25),
+                        torch.tensor([-126.0, -110.0, -100.0, -99.75])])
+    n = len(scales)
+    codes = torch.arange(256).to(torch.uint8).repeat(3 * n, 1)
+    signs = torch.zeros((3 * n, 32), dtype=torch.uint8)
+    signs[n:2 * n] = 255
+    signs[2 * n:] = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (n, 32), dtype=np.uint8))
+    scale = scales.repeat(3).reshape(-1, 1)
+    got = _emulated_dequant(codes, signs, scale, bf16)
+    want = ref.kv_dequant_ref(codes, signs, scale)
+    if bf16:
+        want = want.bfloat16().float()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[:n, 0].view(torch.int32) == 0).all()) and bool(
+        (got[n:2 * n, 0].view(torch.int32) == -2 ** 31).all())  # +0, -0
+    d = 255.0 - torch.arange(1, 256, dtype=torch.float32)
+    x = torch.tensor(-100.0) - d * torch.tensor(ref.KV_STEP)
+    assert float(x.min()) >= -126.0
+
+
+def test_integer_bf16_rounding_equals_torch_including_ties():
+    """The integer bf16 rounding against .bfloat16() on random bit patterns,
+    exact ties (low half 0x8000) with an even and an odd bf16 below them,
+    values one step either side of a tie, the largest finite f32 and inf;
+    NaN never reaches it (exp2 of a finite argument)."""
+    rng = np.random.default_rng(11)
+    rand = rng.integers(0, 2 ** 32, 200_000, dtype=np.uint64)
+    hi = rng.integers(0, 0x7F7F, 4096, dtype=np.uint64) << 16
+    ties = np.concatenate([hi | 0x8000, hi | 0x7FFF, hi | 0x8001,
+                           (hi | 0x10000) | 0x8000])
+    ends = np.array([0x7F7FFFFF, 0x7F800000, 0x00000001, 0x00008000,
+                     0x00018000, 0xFF7FFFFF, 0x80008000], dtype=np.uint64)
+    bits = np.concatenate([rand, ties, ends, ends | 0x80000000])
+    b = torch.from_numpy(bits.astype(np.int64))
+    x = _from_i64(b)
+    keep = ~torch.isnan(x)
+    got = _from_i64(_bf16_rne_bits(b))[keep]
+    want = x[keep].bfloat16().float()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_wrappers_reject_bad_operands():
@@ -288,14 +412,22 @@ def test_cuda_flash_kernel_matches_its_plain_version(card, BH, S, hd, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("BG,T,hd,rep,pos", [(2, 64, 32, 2, 63),
-                                             (2, 1000, 64, 4, 999),
-                                             (1, 512, 128, 48, 0)])
+@pytest.mark.parametrize("BG,T,hd,rep,pos,q_dtype", [
+    (2, 64, 32, 2, 63, "float32"), (2, 1000, 64, 4, 999, "float32"),
+    (1, 512, 128, 48, 0, "float32"),
+    # (tiles of 128 tokens, kKvTile) pos just past a tile (a second split
+    # of one token), a tile's last token, rep not a multiple of the
+    # kernel's 4 rows, a span's edge of the serve-like grid; bf16 q as
+    # serve calls it
+    (2, 1000, 128, 4, 128, "float32"), (2, 1000, 128, 4, 127, "bfloat16"),
+    (2, 1000, 64, 3, 256, "float32"), (64, 1100, 128, 4, 1024, "bfloat16"),
+    (64, 1100, 128, 4, 767, "float32"), (3, 300, 16, 5, 299, "bfloat16")])
 def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
-                                                    pos):
+                                                    pos, q_dtype):
     from repro_torch.serving.kvcache import quantize_kv
     g = torch.Generator(device=card).manual_seed(T)
-    q = torch.randn((BG, rep, hd), generator=g, device=card)
+    q = torch.randn((BG, rep, hd), generator=g, device=card) \
+        .to(getattr(torch, q_dtype))
     cache = []
     for _ in range(2):
         qz = quantize_kv(torch.randn((BG, T, 1, hd), generator=g,
@@ -305,7 +437,18 @@ def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
     got = kd.kv_dequant_decode_attention(q, *cache, pos)
     assert kd.launch_counts["kv_dequant_decode_attention"] == 1
     want = ref.kv_dequant_decode_attention_ref(q, *cache, pos)
-    torch.testing.assert_close(got, want, **TOL)
+    if q_dtype == "bfloat16":
+        # within the bf16 bound of the plain version, and far closer to it
+        # in the kernel's own order (chip_smoke.py's KV_ORDER_TOL, 2^-15)
+        v = ref.kv_dequant_ref(*cache[3:])
+        assert bf16_bound(got, want, v)
+        _, span, tile = kd.grid(BG, rep, hd, min(T, pos + 1), q.dtype, card)
+        torch.testing.assert_close(
+            got, ref.kv_dequant_decode_attention_tiled_ref(q, *cache, pos,
+                                                           span, tile),
+            rtol=0.0, atol=2.0 ** -15 * float(v.abs().max()))
+    else:
+        torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.cuda

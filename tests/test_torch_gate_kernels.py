@@ -67,7 +67,12 @@ def test_gemm_planes_matches_pallas(jax_kernels, R, K):
 
 @pytest.mark.parametrize("O,K,I", [(1, 4, 128), (2, 8, 256), (3, 16, 128),
                                    (1, 32, 512), (4, 2, 1024),
-                                   (2, 128, 128)])
+                                   (2, 128, 128),
+                                   # the CUDA ring body's edges: I not a
+                                   # multiple of its slab, O > 1 with I below
+                                   # a slab, K = 2 and 32
+                                   (1, 32, 300), (2, 2, 1001), (5, 32, 77),
+                                   (3, 2, 33), (2, 16, 130)])
 def test_gemm_planes_mid_matches_pallas(jax_kernels, O, K, I):
     jnp, jga, _ = jax_kernels
     rng = np.random.default_rng(O * K + I)
@@ -299,12 +304,18 @@ def test_cuda_gemm_planes_ring_matches_plain_version(cuda_device, K, R,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("O,K,I", [(1, 4, 1 << 20), (1, 32, 1 << 17),
-                                   (3, 16, 128), (2, 2, 160), (2, 64, 256),
-                                   (1, 128, 384)])
-def test_cuda_gemm_planes_mid_matches_plain_version(cuda_device, O, K, I):
+@pytest.mark.parametrize("O,K,I,offset", [
+    (1, 4, 1 << 20, 0), (1, 32, 1 << 17, 0), (3, 16, 128, 0),
+    (2, 2, 160, 0), (2, 64, 256, 0), (1, 128, 384, 0),
+    # the ring body (K <= 32): I ragged against its slab, O > 1 with I
+    # below a slab, planes one float off 16-byte alignment
+    (1, 32, 300, 0), (2, 2, 1001, 1), (5, 32, 77, 0), (3, 2, 33, 1),
+    (2, 16, 130, 1), (3, 8, (1 << 18) + 3, 0), (2, 32, 4096, 1)])
+def test_cuda_gemm_planes_mid_matches_plain_version(cuda_device, O, K, I,
+                                                    offset):
     rng = np.random.default_rng(O + K + I)
-    ar, ai = (t.to(cuda_device) for t in _t(*_planes(rng, O, K, I)))
+    x = _card_normals(rng, cuda_device, offset, 2, O, K, I)
+    ar, ai = x[0], x[1]
     ur, ui = (t.to(cuda_device)
               for t in _t(*(_planes(rng, K, K) / np.float32(np.sqrt(K)))))
     cr, ci = _counted(tga, "gemm_planes_mid",
