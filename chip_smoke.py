@@ -34,7 +34,9 @@ Phases, in order (any failure exits non-zero and prints no result):
                   rtol 1e-5, atol 1e-6, also at every K in 2 ... 32 with
                   three lanes and B at lane stride 0, R*K past a ragged
                   tile, R*K not a multiple of 4 and planes off 16-byte
-                  alignment.
+                  alignment, and timed at a batched wave's shape (L = 16
+                  rows of 2^22 amplitudes, K = 32 and 16, operands of 8
+                  lanes tiled groups-major, beside torch.matmul).
                   Then the attention kernels (within 2e-4 of their plain
                   versions on f32 inputs, as the Pallas tests hold them):
                   flash_attention at the TPU tests' shapes, causal and
@@ -92,7 +94,27 @@ Phases, in order (any failure exits non-zero and prints no result):
                   traced with torch.profiler (CUDA activity only) and a
                   *_profile line gives device time by kernel and the
                   device's idle share of the run's wall time.
-8. serve        — qwen3-4b at full width and depth (4.0 B bf16 weights
+8. main_batch   — Simulator(with_depolarizing(build_circuit("qft", 24),
+                  0.02), EngineConfig(codec_backend="device"))
+                  .run(trajectories=8, seed=0): 8 noise trajectories as
+                  one lane-batched run, each wave 2 groups x 8 lanes = 16
+                  rows.  Exact launches (gemm_planes_batch once per GemmOp
+                  per wave, encode and decode once per wave, nothing
+                  else), boundary bytes equal to the plan's times 8, each
+                  lane's fidelity >= 0.99 against the dense oracle of its
+                  realization on the card, BatchResult.expectation of
+                  <sum Z> within 1e-2 of the oracles' mean, sample(1024)
+                  on lane 0 (with --profile a main_batch_profile line).
+9. service      — SimService on 4 co-admitted qaoa_template(22) jobs with
+                  the device codec at local_bits 18 (8 stages, waves of
+                  2 groups x 4 lanes): one merged width-4 run_batch, each
+                  lane's state bit for bit that of the job run solo
+                  through a fresh SimService.
+10. cli         — python -m repro_torch.launch.qsim --circuit qft
+                  --qubits 20 --noise 0.02 --trajectories 4
+                  --codec-backend device --expect zsum as a subprocess:
+                  exit 0, the batched-run line and the average printed.
+11. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
                   drawn on cuda:0 from --seed): make_prefill_step on 8
                   random prompts of 2,048 tokens with max_len 4,096,
                   compress_prefill_cache, 32 greedy steps of
@@ -105,7 +127,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   >= 1.7x smaller than bf16.  Prints prefill s, decode ms a
                   step, tokens/s, peak device memory (and with --profile
                   the device's busy and idle share).
-9. report       — one JSON line of kernels, the card's name and power
+12. report      — one JSON line of kernels, the card's name and power
                   limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
@@ -147,6 +169,17 @@ CODEC_RAGGED = (77, 192, 1000, 4097)
 GATE_ATOL = 1e-4                 # B6-B8 against their plain versions
 GROUP_BITS = 22                  # a qft-26 / qft-28 group: 2^22 amplitudes
 GROUP = 1 << GROUP_BITS
+BATCH_QUBITS = 24                # main_batch: noisy qft-24 ...
+BATCH_LANES = 8                  # ... as 8 trajectories (README's recipe)
+BATCH_NOISE = 0.02
+TRAJ_AVG_ATOL = 1e-2             # BatchResult.expectation vs the oracles'
+SERVICE_QUBITS = 22              # service: 4 qaoa_template(22) jobs
+SERVICE_JOBS = 4
+SERVICE_BUDGET = 16 << 30
+#: the planner's heuristic pick at n = 22 without a budget (under the
+#: service's budget it would hold the state in one block, one stage):
+#: 8 stages, a wave 2 groups x 4 lanes with MidGemmOps among its ops
+SERVICE_LOCAL_BITS = 18
 SCHEDULE_RTOL = 1e-5             # execute_schedule vs the batched form
 ATTN_ATOL = 2e-4                 # B10/B11 vs plain, the Pallas tests' bound
 BF16_RTOL = 2.0 ** -7            # one bf16 step: ulp(x) <= 2^-7 |x|
@@ -299,11 +332,13 @@ def tensor_core_check(build, log) -> None:
 # -- phase 2: gemm_planes_batch against its plain version ---------------------
 
 def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
-              timed: bool, offset: int = 0) -> dict:
+              timed: bool, offset: int = 0, tiled: int = 0) -> dict:
     """One shape of gemm_planes_batch on the card: agreement with the
     plain version, and (when ``timed``) kernel / plain / library times
     beside the bound.  ``offset`` floats shift the planes off 16-byte
-    alignment (the kernel's 4-byte copy path)."""
+    alignment (the kernel's 4-byte copy path).  ``tiled`` = D lanes: the
+    L operand rows are D lanes' U tiled groups-major (row w is lane
+    w % D), as a batched wave of L / D groups passes them."""
     import numpy as np
     import torch
     from repro_torch.kernels.gate_apply import gemm_planes_batch
@@ -315,10 +350,12 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
                          device=dev)[offset:].reshape(L, 2, R * K)
     ar = planes[:, 0].reshape(L, R, K)           # lane stride 2RK, as a wave
     ai = planes[:, 1].reshape(L, R, K)
-    U = torch.randn((1 if broadcast else L, 2, K, K), generator=g,
-                    device=dev) / np.sqrt(K)
+    U = torch.randn((1 if broadcast else tiled or L, 2, K, K),
+                    generator=g, device=dev) / np.sqrt(K)
     if broadcast:                                # one U, lane stride 0
         U = U.expand(L, 2, K, K)
+    elif tiled:                                  # a batched wave's rows
+        U = U.repeat(L // tiled, 1, 1, 1)
     br, bi = U[:, 0].transpose(1, 2), U[:, 1].transpose(1, 2)   # U^T views
     cr, ci = gemm_planes_batch(ar, ai, br, bi)
     rr, ri = gemm_planes_batch_ref(ar, ai, br, bi)
@@ -327,7 +364,8 @@ def gemm_case(L: int, R: int, K: int, broadcast: bool, seed: int,
     ok = (torch.allclose(cr, rr, rtol=RTOL, atol=ATOL)
           and torch.allclose(ci, ri, rtol=RTOL, atol=ATOL))
     out = {"L": L, "R": R, "K": K, "broadcast": broadcast,
-           "offset": offset, "max_abs_err": err, "ok": bool(ok)}
+           "tiled": tiled, "offset": offset, "max_abs_err": err,
+           "ok": bool(ok)}
     if not timed:
         return out
     n_b = 1 if broadcast else L
@@ -355,6 +393,11 @@ RING_SHAPES = [s for K in (2, 4, 8, 16, 32)
                          (2, 1001, K, False, 1), (1, 777, K, True, 0))]
 
 
+#: (L, K) of a batched wave: 2 groups of 2^22 amplitudes x BATCH_LANES
+#: trajectories (main_batch), every row with its lane's own operand
+BATCH_WAVE_SHAPES = [(16, 32), (16, 16)]
+
+
 def kernel_phase() -> dict:
     main_shapes = [(2, (1 << 22) // K, K) for K in (16, 32)]
     small = [(3, 5, 2, False), (1, 7, 4, True), (2, 64, 8, False),
@@ -368,11 +411,15 @@ def kernel_phase() -> dict:
     for i, (L, R, K, bc, off) in enumerate(RING_SHAPES):
         cases.append(gemm_case(L, R, K, bc, seed=400 + i, timed=False,
                                offset=off))
+    for i, (L, K) in enumerate(BATCH_WAVE_SHAPES):
+        cases.append(gemm_case(L, GROUP // K, K, False, seed=500 + i,
+                               timed=True, tiled=BATCH_LANES))
     for c in cases:
         print("kernel_check gemm_planes_batch " + json.dumps(c), flush=True)
         if not c["ok"]:
             fail(f"gemm_planes_batch disagrees with its plain version at "
-                 f"L={c['L']} R={c['R']} K={c['K']} offset={c['offset']}: "
+                 f"L={c['L']} R={c['R']} K={c['K']} offset={c['offset']} "
+                 f"tiled={c['tiled']}: "
                  f"max abs err {c['max_abs_err']:.3e} (rtol {RTOL}, atol "
                  f"{ATOL})")
     return {"gemm_planes_batch": cases}
@@ -1453,7 +1500,225 @@ def main_phase(label: str, qubits: int, backend: str, profile: bool,
     return launches
 
 
-# -- phase 8: LLM serving on the compressed KV cache --------------------------
+# -- phases 8 to 10: batched runs, the service and the command line ----------
+
+def batch_launches(sim, bindings) -> dict:
+    """The launches a batched run must show, from its bound stages: one
+    gemm_planes_batch per GemmOp per wave and one encode and one decode
+    per wave, however many lanes a wave holds; no other kernel."""
+    from repro_torch.core.schedule import GemmOp
+    eng = sim._engine
+    depth = eng.cfg.pipeline_depth
+    want = {k: 0 for k in read_counts()}
+    for bs in eng._bind_stages_batch(bindings):
+        if not bs.plan:
+            continue
+        n = bs.layout.n_groups
+        waves = -(-n // min(depth, n))
+        want["gemm_planes_batch"] += waves * sum(
+            isinstance(op, GemmOp) for op in bs.sched.ops)
+        want["encode"] += waves
+        want["decode"] += waves
+    return want
+
+
+def zsum_on_card(state, n: int) -> float:
+    """<sum_i Z_i> of a dense state on the card."""
+    import torch
+    idx = torch.arange(state.numel(), device=state.device)
+    pop = torch.zeros_like(idx)
+    for k in range(n):
+        pop += (idx >> k) & 1
+    probs = state.abs().to(torch.float64) ** 2
+    return float((probs * (n - 2 * pop).to(torch.float64)).sum())
+
+
+def batch_phase(profile: bool) -> dict:
+    """Drive Simulator(with_depolarizing(build_circuit("qft", 24), 0.02),
+    EngineConfig(codec_backend="device")).run(trajectories=8, seed=0) on
+    cuda:0 with every launch count set to 0 just before and read just
+    after; check the exact launches, the boundary bytes (the plan's times
+    the lanes), each lane against the dense oracle of its realization,
+    the trajectory average, and a readout.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import (EngineConfig, Simulator, build_circuit,
+                             fidelity, with_depolarizing, zsum_cost_fn)
+    from repro_torch.core.dense_engine import simulate_dense
+
+    label = "main_batch"
+    noisy = with_depolarizing(build_circuit("qft", BATCH_QUBITS),
+                              BATCH_NOISE)
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulator(noisy, EngineConfig(codec_backend="device"))
+    plan = sim.compile()
+    print(f"{label}_plan qft-{BATCH_QUBITS} depolarizing p={BATCH_NOISE} "
+          f"trajectories={BATCH_LANES} codec=device "
+          f"local_bits={plan.local_bits} stages={plan.n_stages} "
+          f"depth={plan.pipeline_depth} device={sim._engine.device}",
+          flush=True)
+    trace = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        trace = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+    reset_counts()
+    with trace as prof:
+        t0 = time.perf_counter()
+        batch = sim.run(trajectories=BATCH_LANES, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = sim.stats
+    peak_dev = torch.cuda.max_memory_allocated()
+    want = batch_launches(sim, tuple((None, j) for j in range(BATCH_LANES)))
+    wire = tuple(BATCH_LANES * sum(getattr(sp, f) for sp in plan.stages
+                                   if sp.plan)
+                 for f in ("est_h2d_bytes", "est_d2h_bytes"))
+    print(f"{label}_stats " + json.dumps({
+        "wall_s": wall, "t_total": st.t_total, "t_compute": st.t_compute,
+        "t_decompress": st.t_decompress, "t_compress": st.t_compress,
+        "t_fetch": st.t_fetch, "h2d_bytes": st.h2d_bytes,
+        "d2h_bytes": st.d2h_bytes, "plan_bytes_times_lanes": wire,
+        "n_lanes": st.n_lanes, "n_batch_chunks": st.n_batch_chunks,
+        "pressure_rungs": st.pressure_rungs,
+        "peak_ram_bytes": st.peak_ram_bytes,
+        "max_memory_allocated": peak_dev, "launches": launches,
+        "expected_launches": want}), flush=True)
+    if profile:
+        print(f"{label}_profile " + json.dumps(device_profile(prof, wall)),
+              flush=True)
+    if launches != want:
+        fail(f"the {label} path launched {launches}, not {want}")
+    # every lane's blocks cross once each way a stage, as the plan prices
+    # one lane (device codec: fixed-size wire a block)
+    if (st.h2d_bytes, st.d2h_bytes) != wire:
+        fail(f"{label}: boundary bytes h2d {st.h2d_bytes} d2h "
+             f"{st.d2h_bytes}, the plan's times {BATCH_LANES} lanes are "
+             f"{wire[0]} and {wire[1]}")
+
+    t0 = time.perf_counter()
+    fids, zs, finite = [], [], True
+    for j in range(BATCH_LANES):
+        state = torch.from_numpy(batch[j].statevector(force=True)).to(
+            "cuda:0")
+        ideal = simulate_dense(noisy.realize(j), device="cuda:0")
+        fids.append(fidelity(ideal, state))
+        zs.append(zsum_on_card(ideal, BATCH_QUBITS))
+        finite &= bool(torch.isfinite(torch.view_as_real(state)).all())
+        del state, ideal
+    t_oracle = time.perf_counter() - t0
+    avg = batch.expectation(zsum_cost_fn(BATCH_QUBITS))
+    counts = batch[0].sample(1024, seed=0)
+    print(f"{label}_check " + json.dumps({
+        "fidelity": fids, "finite": finite, "oracle_s": t_oracle,
+        "zsum_avg": avg, "oracle_zsum_avg": float(np.mean(zs)),
+        "oracle_zsum": zs, "shots": int(sum(counts.values())),
+        "distinct": len(counts)}), flush=True)
+    sim.close()
+    if not finite:
+        fail(f"{label}: a lane holds non-finite amplitudes")
+    if not min(fids) >= FIDELITY_MIN:
+        fail(f"{label}: lane fidelity {min(fids)} < {FIDELITY_MIN} against "
+             "the dense oracle of its realization")
+    if not abs(avg - float(np.mean(zs))) <= TRAJ_AVG_ATOL:
+        fail(f"{label}: trajectory average {avg} is not within "
+             f"{TRAJ_AVG_ATOL} of the oracles' {float(np.mean(zs))}")
+    if sum(counts.values()) != 1024:
+        fail(f"{label}: readout returned a malformed sample")
+    return launches
+
+
+def service_phase() -> dict:
+    """SimService on SERVICE_JOBS co-admitted qaoa_template(22) jobs with
+    the device codec on cuda:0 (launch counts set to 0 just before the
+    drain, read just after): they must merge into one run_batch, and each
+    lane's final state must equal bit for bit the same job run solo
+    through a fresh SimService (width 1).  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import EngineConfig, SimService, qaoa_template
+
+    label = "service"
+    qc = qaoa_template(SERVICE_QUBITS)
+    cfg = EngineConfig(codec_backend="device", local_bits=SERVICE_LOCAL_BITS)
+    points = [{"gamma0": 0.2 + 0.3 * i, "beta0": 0.1 + 0.15 * i}
+              for i in range(SERVICE_JOBS)]
+
+    def grab(view):
+        return view.statevector(force=True)
+
+    with SimService(SERVICE_BUDGET, config=cfg) as svc:
+        jobs = [svc.submit(qc, params=p, readout=grab) for p in points]
+        reset_counts()
+        t0 = time.perf_counter()
+        svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        summary = svc.stats.summary()
+    solo, solo_s = [], []
+    for p in points:
+        with SimService(SERVICE_BUDGET, config=cfg) as one:
+            job = one.submit(qc, params=p, readout=grab)
+            t0 = time.perf_counter()
+            one.drain()
+            solo_s.append(time.perf_counter() - t0)
+            solo.append(job)
+    equal = [bool(np.array_equal(m.result["readout"], s.result["readout"]))
+             for m, s in zip(jobs, solo)]
+    finite = all(bool(np.isfinite(m.result["readout"]).all()) for m in jobs)
+    print(f"{label}_check " + json.dumps({
+        "jobs": SERVICE_JOBS, "qubits": SERVICE_QUBITS,
+        "merge_widths": [j.merge_width for j in jobs],
+        "solo_widths": [j.merge_width for j in solo],
+        "states": [j.state for j in jobs] + [j.state for j in solo],
+        "merged_wall_s": wall, "solo_wall_s": solo_s,
+        "bitwise_equal": equal, "finite": finite, "stats": summary,
+        "launches": {k: v for k, v in launches.items() if v}}), flush=True)
+    if any(j.state != "done" for j in jobs + solo):
+        fail(f"{label}: a job did not finish")
+    if [j.merge_width for j in jobs] != [SERVICE_JOBS] * SERVICE_JOBS:
+        fail(f"{label}: the {SERVICE_JOBS} jobs did not merge into one "
+             "run_batch")
+    if not (all(equal) and finite):
+        fail(f"{label}: a merged lane differs from its solo run "
+             f"({equal})")
+    for k in ("gemm_planes_batch", "encode", "decode"):
+        if launches[k] <= 0:
+            fail(f"the {label} path launched {k} no time")
+    return launches
+
+
+CLI_ARGS = ["--circuit", "qft", "--qubits", "20", "--noise", "0.02",
+            "--trajectories", "4", "--codec-backend", "device",
+            "--expect", "zsum"]
+
+
+def cli_phase() -> None:
+    """``python -m repro_torch.launch.qsim`` with noise trajectories as a
+    subprocess on the card: it must exit 0 and print the batched-run
+    line and the trajectory average."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.qsim"] + CLI_ARGS,
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    batched = [ln for ln in lines if ln.startswith("[qsim] batched run:")]
+    zsum = [ln for ln in lines if ln.startswith("[qsim] <sum Z_i>")]
+    print("cli_check " + json.dumps({
+        "argv": CLI_ARGS, "rc": out.returncode, "wall_s": wall,
+        "lines": lines[-12:]}), flush=True)
+    if out.returncode != 0:
+        fail(f"qsim exited {out.returncode}: {out.stderr.strip()[-2000:]}")
+    if not batched or not zsum:
+        fail("qsim printed no batched-run line or no trajectory average")
+
+
+# -- phase 11: LLM serving on the compressed KV cache -------------------------
 
 def _serve_run(cfg, params, tokens, forced=None, profile: bool = False):
     """Prefill ``tokens``, compress the cache, decode SERVE_STEPS greedy
@@ -1600,7 +1865,7 @@ def _leaves(tree):
         yield tree
 
 
-# -- phase 9: the report ------------------------------------------------------
+# -- phase 12: the report -----------------------------------------------------
 
 GATE_CU = "src/repro_torch/csrc/gate_apply.cu"
 PACK_CU = "src/repro_torch/csrc/pack.cu"
@@ -1714,6 +1979,9 @@ def main() -> int:
     launches["main_pergate"] = main_phase("main_pergate", MAIN_QUBITS,
                                           "device", args.profile,
                                           gate_schedule=False)
+    launches["main_batch"] = batch_phase(args.profile)
+    launches["service"] = service_phase()
+    cli_phase()
     launches["serve"] = serve_phase(args.seed, args.profile)
     print(json.dumps({"kernels": kernel_report(checks, launches)}),
           flush=True)

@@ -16,10 +16,16 @@ kernel runs its plain PyTorch version.
 Public API — the names of ``repro`` that this port has so far:
 
     Circuits     build_circuit, random_circuit, qaoa_template, Circuit,
-                 Gate, Parameter
-    Sessions     Simulator, SimResult, EngineConfig, SimStats
+                 Gate, Parameter; noise channels via Circuit.depolarize /
+                 with_depolarizing (sampled Pauli trajectories)
+    Sessions     Simulator, SimResult, EngineConfig, SimStats; batched
+                 execution via Simulator.run_batch / run(trajectories=K)
+                 -> BatchResult (per-lane views + trajectory averages)
     Planning     ExecutionPlan (Simulator.compile), StagePlan,
                  PlanPredictions
+    Service      SimService: plan-admission scheduling + continuous lane
+                 batching over a structure-keyed session pool;
+                 ServiceStats, Job, VirtualClock
     One-shot     simulate_bmqsim (compat wrapper), simulate_dense
     Metrics      fidelity, max_pointwise_rel_error
     Compression  PwRelParams, compress_complex_block,
@@ -30,10 +36,11 @@ Public API — the names of ``repro`` that this port has so far:
 Both codec backends run: ``codec_backend="host"`` and the device-resident
 codec ``codec_backend="device"``, and both stage computes: the scheduled
 wave path (default) and the per-gate path (``gate_schedule=False``), as
-does the ``per_gate=True`` baseline.  Not ported yet (they raise
-``NotImplementedError``): batched runs (``Simulator.run_batch``,
-``run(trajectories=K)``) and several devices or a mesh.  ``SimService``
-and the noise-channel helpers are not exported yet.
+does the ``per_gate=True`` baseline; batched runs and noise trajectories
+run on the scheduled path.  The command lines are ``python -m
+repro_torch.launch.qsim`` and ``python -m repro_torch.launch.serve``.
+Not ported yet (they raise ``NotImplementedError``): several devices or
+a mesh.
 
 Quickstart::
 
@@ -50,12 +57,13 @@ from .compression import (  # noqa: F401
     compress_complex_block, decompress_complex_block,
 )
 from .core import (  # noqa: F401
-    BMQSimEngine, Circuit, EngineConfig, ExecutionPlan, FaultInjector,
-    FaultSpec, Gate, InjectedCrash, Parameter, PlanPredictions,
-    PressureMonitor, SimResult, SimStats, Simulator, StagePlan,
-    build_circuit, fidelity, inject_faults, max_pointwise_rel_error,
-    maxcut_cost_fn, maxcut_edges, qaoa_template, random_circuit,
-    simulate_bmqsim, simulate_dense, zsum_cost_fn,
+    BatchResult, BMQSimEngine, Circuit, EngineConfig, ExecutionPlan,
+    FaultInjector, FaultSpec, Gate, InjectedCrash, Job, Parameter,
+    PlanPredictions, PressureMonitor, ServiceStats, SimResult, SimService,
+    SimStats, Simulator, StagePlan, VirtualClock, build_circuit, fidelity,
+    inject_faults, max_pointwise_rel_error, maxcut_cost_fn, maxcut_edges,
+    qaoa_template, random_circuit, simulate_bmqsim, simulate_dense,
+    with_depolarizing, zsum_cost_fn,
 )
 from .errors import (  # noqa: F401
     BlockCorruptionError, CheckpointError, MemoryPressureError,
@@ -67,9 +75,11 @@ __all__ = [
     "Circuit", "Gate", "Parameter", "build_circuit", "random_circuit",
     "qaoa_template", "maxcut_edges", "maxcut_cost_fn",
     # sessions
-    "Simulator", "SimResult", "EngineConfig", "SimStats",
-    # observables
-    "zsum_cost_fn",
+    "Simulator", "SimResult", "BatchResult", "EngineConfig", "SimStats",
+    # service tier
+    "SimService", "ServiceStats", "Job", "VirtualClock",
+    # noise trajectories
+    "with_depolarizing", "zsum_cost_fn",
     # planning
     "ExecutionPlan", "StagePlan", "PlanPredictions",
     # one-shot + internals kept public

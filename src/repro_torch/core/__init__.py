@@ -26,4 +26,5 @@ from .result import BatchResult, SimResult  # noqa: F401
 from .schedule import (  # noqa: F401
     StageSchedule, compile_schedule, execute_schedule, execute_schedule_batched,
 )
+from .service import Job, ServiceStats, SimService, VirtualClock  # noqa: F401
 from .simulator import Simulator, circuit_fingerprint  # noqa: F401

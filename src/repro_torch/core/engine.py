@@ -25,13 +25,18 @@ round-trip and a transpose pair per fused gate, one group at a time,
 through ``kernels/ops.py::apply_fused_gate`` and its ``gemm_planes`` /
 ``diag_apply`` kernels).
 
-This is the PyTorch port of ``repro.core.engine``: one circuit, one device,
-one lane.  Batched runs and several devices raise ``NotImplementedError``
-until they are ported.
+A batch of lanes (parameter-sweep points or noise trajectories,
+:meth:`BMQSimEngine.run_batch`) shares every wave: a wave of ``d``
+groups is ``d·L`` rows, groups-major, and each ``GemmOp`` is one
+``gemm_planes_batch`` launch with one operand per lane.
+
+This is the PyTorch port of ``repro.core.engine`` on one device; several
+devices raise ``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from functools import lru_cache
@@ -52,7 +57,7 @@ from .pipeline import (StagePipeline, complex_to_planes, make_backend,
                        planes_to_complex)
 from .plan import ExecutionPlan, circuit_fingerprint, plan_fingerprint
 from .planner import (assemble_plan, estimate_bytes_per_amp, fuse_stage,
-                      resolve_config)
+                      fuse_stage_lanes, max_feasible_lanes, resolve_config)
 from .pressure import PressureMonitor
 from .result import collect_statevector
 from .schedule import (StageSchedule, compile_schedule, execute_schedule,
@@ -394,6 +399,55 @@ def _stage_mats(vgates: list[FusedGate],
     return mats
 
 
+def _lane_rows(mat: torch.Tensor, rows: int) -> torch.Tensor:
+    """Lane-stacked operand -> one row per wave row (row ``w`` is lane
+    ``w % L``'s).  An operand already tiled for a full wave (see
+    :meth:`BMQSimEngine._bind_stages_batch`) is sliced, a view; an
+    (L, ...) one is tiled groups-major."""
+    if mat.shape[0] >= rows:
+        return mat[:rows]
+    return mat.repeat((rows // mat.shape[0],) + (1,) * (mat.dim() - 1))
+
+
+@lru_cache(maxsize=256)
+def _stage_fn_batch(plan: tuple[tuple[tuple[int, ...], bool], ...], nv: int,
+                    use_kernel: bool):
+    """Lane-batched (R, 2, 2^nv) -> (R, 2, 2^nv) group update: one call
+    covers every lane of a parameter-sweep / trajectory batch (lane l's
+    planes contract against lane l's operands).  Cached on stage
+    structure like :func:`_stage_fn`.
+
+    Wave-aware: when the pipeline coalesces ``d`` consecutive groups of
+    an L-lane batch into one (d·L)-row wave, row ``w`` takes lane ``w %
+    L``'s operands (groups-major) — sliced from operands the engine tiled
+    once for a full wave, or tiled here from (L, ...) ones."""
+    sched = compile_schedule(plan, nv)
+
+    def fn(planes, *mats):
+        rows = planes.shape[0]
+        mats = [_lane_rows(m, rows) for m in mats]
+        return execute_schedule_batched(sched, planes, mats,
+                                        use_kernel=use_kernel)
+    return fn
+
+
+def _stage_mats_batch(lane_vgates, plan, device: torch.device
+                      ) -> list[torch.Tensor]:
+    """Per-gate lane-stacked operands for the batched scheduled path on
+    ``device``: (L, 2, K, K) stacked re/im planes of each lane's U for
+    dense fused gates, (L, 2, K) diagonal planes when every lane's
+    realization is diagonal."""
+    mats = []
+    for i, (_, diag) in enumerate(plan):
+        per_lane = []
+        for vgates in lane_vgates:
+            m = np.diag(vgates[i].matrix) if diag else vgates[i].matrix
+            per_lane.append(np.stack([m.real, m.imag]))
+        mats.append(torch.as_tensor(np.stack(per_lane).astype(np.float32),
+                                    device=device))
+    return mats
+
+
 class _BoundStage(NamedTuple):
     """One stage, fully compiled for one parameter binding: everything
     :meth:`BMQSimEngine.run` needs — built once at bind/plan time, never
@@ -544,7 +598,12 @@ class BMQSimEngine:
         # LRU-bounded: an optimizer loop feeding ever-new angles must not
         # grow the session's memory with one operand set per evaluation
         self._bound: OrderedDict[tuple, list[_BoundStage]] = OrderedDict()
+        self._bound_batch: OrderedDict[tuple, list[_BoundStage]] = \
+            OrderedDict()
         self._seen_stagefns: set[tuple] = set()
+        #: lanes currently materialized in the store (run_batch leaves K
+        #: final states resident; the next run clears the surplus)
+        self._stored_lanes = 1
         # compiled ExecutionPlans, keyed on the binding's stage structure
         # (parameter *values* don't change it, so a sweep shares one plan)
         self._plans: dict[tuple, ExecutionPlan] = {}
@@ -576,7 +635,10 @@ class BMQSimEngine:
         stage-fn cache key per stage — the plan-time work.  Cached, so
         :meth:`run` only ever walks the result."""
         if self._stochastic:
-            raise _not_ported("stochastic trajectories (run_batch)", "A7")
+            raise ValueError(
+                "circuit contains stochastic Pauli channels; sample "
+                "trajectories via run_batch / run(trajectories=K) instead "
+                "of a single deterministic run")
         key = self._params_key(params)
         cached = self._bound.get(key)
         if cached is not None:
@@ -607,12 +669,78 @@ class BMQSimEngine:
             self._bound.popitem(last=False)
         return bound
 
+    # -- batched parameter/trajectory binding ----------------------------------
+    def _validate_bindings(self, bindings) -> None:
+        """Cheap pre-flight of a batch: every lane's params must bind and
+        a stochastic circuit needs a trajectory seed per lane — run
+        BEFORE any state is invalidated."""
+        if not bindings:
+            raise ValueError("run_batch needs at least one lane")
+        if not self.cfg.gate_schedule or self.cfg.per_gate:
+            raise ValueError(
+                "run_batch requires the scheduled stage compute "
+                "(gate_schedule=True, per_gate=False)")
+        for params, seed in bindings:
+            self._check_params(params)
+            if self._stochastic and seed is None:
+                raise ValueError(
+                    "stochastic circuit: every batch lane needs a "
+                    "trajectory seed (pass seeds=... / trajectories=K)")
+
+    def _bind_stages_batch(self, bindings: tuple) -> list[_BoundStage]:
+        """Compile one *batch* binding — ``bindings`` is a tuple of
+        ``(params, trajectory_seed)`` per lane.  Fusion/schedules are
+        shared across lanes (structure depends only on gate supports);
+        the operands are lane-stacked, tiled once to a full wave's rows
+        (groups-major), and the stage fns lane-batched, so
+        :meth:`run_batch` makes one call per (stage, wave) for the whole
+        batch.  Cached like :meth:`_bind_stages`."""
+        key = tuple((self._params_key(p), s) for p, s in bindings)
+        cached = self._bound_batch.get(key)
+        if cached is not None:
+            self._bound_batch.move_to_end(key)
+            return cached
+        self._validate_bindings(bindings)
+        # one rng per lane, threaded through the stages in circuit order:
+        # a lane's realization is identical to circuit.realize(seed)'s
+        rngs = [np.random.default_rng(s) if s is not None else None
+                for _, s in bindings]
+        params_list = [p for p, _ in bindings]
+        bound = []
+        for layout, gates in self._stages:
+            lane_vgates, plan = fuse_stage_lanes(
+                layout, gates, self.cfg.max_fused_qubits, params_list, rngs)
+            mats = _stage_mats_batch(lane_vgates, plan, self.device)
+            # the full wave's operand rows, built here once: every wave
+            # slices them (a view), the last, shorter one included
+            width = min(self.cfg.pipeline_depth, layout.n_groups)
+            if width > 1:
+                mats = [_lane_rows(m, width * len(bindings)) for m in mats]
+            self.stats.n_fused_unitaries += len(plan) * len(bindings)
+            nv = layout.b + layout.m
+            fkey = (plan, nv, self.cfg.use_kernel, "batch", self._interpret)
+            fn = (_stage_fn_batch(plan, nv, self.cfg.use_kernel)
+                  if plan else None)
+            sched = compile_schedule(plan, nv) if plan else None
+            # the batched stage fn is already row-batched
+            bound.append(_BoundStage(layout, plan, mats, fkey, fn, sched,
+                                     fn))
+        self._bound_batch[key] = bound
+        while len(self._bound_batch) > _BOUND_CACHE_SIZE:
+            self._bound_batch.popitem(last=False)
+        return bound
+
     # -- the plan artifact -----------------------------------------------------
     def compile(self, params: dict | None = None) -> ExecutionPlan:
         """Freeze this engine's compile-time decisions for one binding
         into an :class:`ExecutionPlan` (cached per stage structure —
-        parameter values don't change it)."""
-        bound = self._bind_stages(params)
+        parameter values don't change it).  A stochastic circuit compiles
+        the seed-0 trajectory's realization (the layout/partition half —
+        what ``--explain`` inspects — is realization-independent)."""
+        if self._stochastic:
+            bound = self._bind_stages_batch(((params, 0),))
+        else:
+            bound = self._bind_stages(params)
         skey = tuple(bs.plan for bs in bound)
         pkey = self._params_key(params)
         plan = self._plans.get(skey)
@@ -645,30 +773,51 @@ class BMQSimEngine:
         return 2 ** (self.n - self.b)
 
     def _init_state(self) -> None:
-        """|0..0>: the one-hot first block and the zero block are each
-        encoded once and aliased across the remaining blocks (§4.2)."""
+        self._init_lanes(0, 1)
+
+    def _init_lanes(self, lane_base: int, lanes: int) -> None:
+        """|0..0> in every lane of ``[lane_base, lane_base + lanes)``:
+        the §4.2 trick generalizes — the one-hot first block and the zero
+        block are each encoded once and aliased across blocks AND lanes."""
         bsz = 2 ** self.b
         n_blocks = self.n_blocks
+        base_key = lane_base * n_blocks
         first = np.zeros(bsz, dtype=np.complex64)
         first[0] = 1.0
-        self.backend.encode_host_block(0, first)
+        self.backend.encode_host_block(base_key, first)
         if n_blocks > 1:
-            self.backend.encode_host_block(1, np.zeros(bsz, np.complex64))
-        for blk in range(2, n_blocks):
-            self.store.put_alias(blk, 1)
+            self.backend.encode_host_block(base_key + 1,
+                                           np.zeros(bsz, np.complex64))
+        for lane in range(lanes):
+            off = (lane_base + lane) * n_blocks
+            for blk in range(n_blocks):
+                key = off + blk
+                if key == base_key or (n_blocks > 1 and key == base_key + 1):
+                    continue
+                self.store.put_alias(key,
+                                     base_key if blk == 0 else base_key + 1)
         self.stats.n_block_compressions += min(n_blocks, 2)
 
-    def _make_monitor(self) -> PressureMonitor | None:
+    def _make_monitor(self, lanes: int = 1) -> PressureMonitor | None:
         """Arm the degradation ladder for one run (None when disabled)."""
         if not self.cfg.pressure_monitor:
             return None
         return PressureMonitor(
             predicted_bpa=estimate_bytes_per_amp(self.cfg.b_r,
                                                  self.cfg.compression),
-            n_qubits=self.n, lanes=1,
+            n_qubits=self.n, lanes=lanes,
             headroom=self.cfg.pressure_headroom,
             ram_budget=self.cfg.ram_budget_bytes,
             disk_budget=self.cfg.disk_budget_bytes)
+
+    def _clear_lanes(self, new_lanes: int) -> None:
+        """Drop the final states of lanes a previous (larger) batch left
+        in the store — their keys would otherwise leak RAM forever."""
+        n_blocks = self.n_blocks
+        for lane in range(new_lanes, self._stored_lanes):
+            for blk in range(n_blocks):
+                self.store.delete(lane * n_blocks + blk)
+        self._stored_lanes = new_lanes
 
     # -- main loop -------------------------------------------------------------
     def run(self, collect_state: bool = True, params: dict | None = None,
@@ -702,6 +851,7 @@ class BMQSimEngine:
         self.stats.per_stage_boundary_bytes = []
         self.stats.per_stage_exchange_bytes = []
         if start_stage == 0:
+            self._clear_lanes(1)
             self._init_state()
         pipe = StagePipeline(self.backend, depth=self.cfg.pipeline_depth,
                              device=self.device)
@@ -763,9 +913,125 @@ class BMQSimEngine:
             return self._collect()
         return None
 
+    # -- batched execution -----------------------------------------------------
+    def feasible_lanes(self, lanes: int) -> int:
+        """Largest sub-batch the memory budget admits (== ``lanes`` when
+        no budget is set); :meth:`run_batch` chunks to this size."""
+        budget = self.cfg.memory_budget_bytes
+        if budget is None or lanes <= 1:
+            return max(1, lanes)
+        max_m = max((layout.m for layout, _ in self._stages), default=0)
+        return max_feasible_lanes(
+            self.n, self.b, max_m, self.cfg.pipeline_depth,
+            estimate_bytes_per_amp(self.cfg.b_r, self.cfg.compression),
+            budget, lanes, n_devices=1)
+
     def run_batch(self, bindings) -> None:
-        """Lane-batched execution — not ported yet (ROADMAP A7)."""
-        raise _not_ported("BMQSimEngine.run_batch", "A7")
+        """Execute the circuit for a whole batch of bindings at once.
+
+        ``bindings`` is a sequence of ``(params, trajectory_seed)`` pairs
+        — one lane per parameter-sweep point or noise trajectory.  Every
+        lane flows through the staged pipeline together: per (stage,
+        wave), ONE lane-batched stage call (one ``gemm_planes_batch``
+        launch per ``GemmOp``, one encode and one decode launch on the
+        device codec), ONE boundary crossing, and one store barrier
+        cover all K lanes.
+
+        Lane ``j``'s final compressed state lands under store keys
+        ``[j * n_blocks, (j+1) * n_blocks)``; read it back through a
+        :class:`~repro_torch.core.result.BatchResult` lane view.  When a
+        memory budget is set and the K-lane working set would break it,
+        the batch executes in chunked sub-batches of
+        :meth:`feasible_lanes` lanes (with a ``RuntimeWarning``) — the
+        result is identical, the staging peak smaller.
+        """
+        t_start = time.perf_counter()
+        bindings = tuple(bindings)
+        self._validate_bindings(bindings)
+        lanes = len(bindings)
+        chunk = self.feasible_lanes(lanes)
+        if chunk < lanes:
+            warnings.warn(
+                f"batch of {lanes} lanes exceeds the memory budget "
+                f"({self.cfg.memory_budget_bytes} B); executing "
+                f"{-(-lanes // chunk)} chunked sub-batches of <= {chunk}",
+                RuntimeWarning, stacklevel=2)
+        self.stats.n_runs += 1
+        self.stats.n_lanes = lanes
+        self.stats.n_batch_chunks = -(-lanes // chunk)
+        self.stats.per_stage_boundary_bytes = []
+        self.stats.per_stage_exchange_bytes = []
+        # every lane re-initializes below, but chunk c's init only touches
+        # chunk c's keys — drop ALL previous-run states up front so a
+        # chunked batch never carries stale lanes through its first
+        # sub-batches (inflating peak RAM and the first-chunk calibration)
+        self._clear_lanes(0)
+        self._stored_lanes = lanes
+        monitor = self._make_monitor(lanes)
+        for base in range(0, lanes, chunk):
+            self._run_lane_chunk(bindings[base:base + chunk], base, monitor)
+        self.stats.t_total += time.perf_counter() - t_start
+        self._snap_store_stats()
+
+    def _run_lane_chunk(self, bindings: tuple, lane_base: int,
+                        monitor: PressureMonitor | None = None) -> None:
+        """One feasible sub-batch: bind, init its lanes, walk the plan
+        with lane-batched pipeline stages."""
+        bound = self._bind_stages_batch(bindings)
+        lanes = len(bindings)
+        self._init_lanes(lane_base, lanes)
+        if monitor is not None:
+            # bpa denominator: lanes materialized so far (finished
+            # chunks' final states stay resident in the store)
+            monitor.lanes = lane_base + lanes
+        offsets = (lane_base + np.arange(lanes, dtype=np.int64)) \
+            * self.n_blocks
+        pipe = StagePipeline(self.backend, depth=self.cfg.pipeline_depth,
+                             device=self.device)
+        back = self.backend
+        h2d0, d2h0 = back.h2d_bytes, back.d2h_bytes
+        dec0, com0 = back.n_decompressions, back.n_compressions
+        first_done = False
+        with pipe, torch.no_grad():
+            for stage_no, bs in enumerate(bound):
+                if not bs.plan:
+                    continue
+                if bs.key in self._seen_stagefns:
+                    self.stats.n_stagefn_cache_hits += 1
+                else:
+                    self._seen_stagefns.add(bs.key)
+                    self.stats.n_stagefn_compiles += 1
+                # one batched schedule execution transposes the whole
+                # (L, ...) lane stack in a single pass — count per group,
+                # not per lane (that is the point)
+                self.stats.n_transposes_naive += \
+                    bs.sched.n_transposes_naive * bs.layout.n_groups * lanes
+                self.stats.n_transposes_scheduled += \
+                    bs.sched.n_transposes * bs.layout.n_groups
+                sh2d, sd2h = back.h2d_bytes, back.d2h_bytes
+                pipe.run_stage(bs.layout.group_block_ids(), bs.fn, bs.mats,
+                               lane_offsets=offsets, wave_fn=bs.wave_fn)
+                self.stats.per_stage_boundary_bytes.append(
+                    (back.h2d_bytes - sh2d, back.d2h_bytes - sd2h))
+                self.stats.per_stage_exchange_bytes.append(0)
+                if not first_done and lane_base == 0:
+                    # calibrate on the first chunk only: later chunks'
+                    # store totals include finished lanes' final states
+                    first_done = True
+                    self.stats.bytes_per_amp_measured = \
+                        self.store.total_bytes / (2 ** self.n * lanes)
+                if monitor is not None:
+                    monitor.check(self.store, pipe, self.stats,
+                                  stage_no + 1)
+        self.stats.t_decompress += pipe.t_load
+        self.stats.t_compute += pipe.t_compute
+        self.stats.t_fetch += pipe.t_fetch
+        self.stats.t_compress += pipe.t_store
+        self.stats.n_group_phases += pipe.n_group_phases
+        self.stats.h2d_bytes += back.h2d_bytes - h2d0
+        self.stats.d2h_bytes += back.d2h_bytes - d2h0
+        self.stats.n_block_decompressions += back.n_decompressions - dec0
+        self.stats.n_block_compressions += back.n_compressions - com0
 
     def _snap_store_stats(self) -> None:
         s = self.store.stats

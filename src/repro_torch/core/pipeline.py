@@ -566,6 +566,7 @@ class StagePipeline:
             self.t_store += dt
 
     def run_stage(self, block_ids: np.ndarray, fn, mats,
+                  lane_offsets: np.ndarray | None = None,
                   wave_fn=None) -> None:
         """Run one stage: ``block_ids`` is the (n_groups, 2^m) layout
         table, ``fn`` the single-group stage update ((2, 2^(b+m)) planes
@@ -575,24 +576,37 @@ class StagePipeline:
         2^(b+m)) planes -> same, updated in place): it enables the
         wave-coalesced scheduler.  Without it (the per-gate path has no
         batched form) the stage runs strictly sequentially through the
-        single-group hooks."""
+        single-group hooks.
+
+        ``lane_offsets`` switches on the lane-batched path: each wave's
+        key table stacks ``lane_offsets[:, None] + block_ids[g]`` for the
+        wave's groups (groups-major: row ``g_local * L + l``), and
+        ``wave_fn`` updates the (depth·L, 2, 2^(b+m)) row stack in one
+        call, row ``w`` against lane ``w % L``'s operands."""
         assert self._entered, "use StagePipeline as a context manager"
         n_groups, n_blocks = block_ids.shape
         self.n_group_phases += n_groups
         if wave_fn is None:
-            self._run_sequential_single(block_ids, fn, mats)
+            self._run_sequential_single(block_ids, fn, mats, lane_offsets)
             return
-        items = self._wave_items(block_ids)
+        items = self._wave_items(block_ids, lane_offsets)
         if self._dec_pool is None:
             self._run_waves(items, wave_fn, mats, n_blocks)
             return
         self._run_overlapped(items, wave_fn, mats, n_blocks)
 
-    def _wave_items(self, block_ids) -> list[np.ndarray]:
-        """Cut one stage into depth-wide key tables (one per wave)."""
+    def _wave_items(self, block_ids, lane_offsets=None) -> list[np.ndarray]:
+        """Cut one stage into depth-wide key tables (one per wave); with
+        ``lane_offsets`` each group's row repeats once per lane, shifted
+        by the lane's key offset, groups-major."""
         n_groups, _ = block_ids.shape
         W = min(self.depth, n_groups)
-        return [block_ids[lo:lo + W] for lo in range(0, n_groups, W)]
+        items = [block_ids[lo:lo + W] for lo in range(0, n_groups, W)]
+        if lane_offsets is None:
+            return items
+        offs = np.asarray(lane_offsets)[:, None]
+        return [np.concatenate([offs + row[None, :] for row in gids])
+                for gids in items]
 
     # -- sequential wave loop (depth 1 / coalescing-only hosts) ---------------
     def _run_waves(self, items, wave_fn, mats, n_blocks) -> None:
@@ -612,23 +626,38 @@ class StagePipeline:
             self._store(back.store_group_batch, keys, result)
 
     # -- strictly sequential single-group loop (no batched stage fn) ----------
-    def _run_sequential_single(self, block_ids, fn, mats) -> None:
+    def _run_sequential_single(self, block_ids, fn, mats,
+                               lane_offsets=None) -> None:
         """The per-gate path: one group per call, in order, on the
-        caller's thread — load, stage, compute, dispatch, await, store."""
+        caller's thread — load, stage, compute, dispatch, await, store.
+        With ``lane_offsets`` a call covers every lane of one group (an
+        (L, 2^m) key table through the row-batched hooks)."""
         back = self.backend
         n_groups, n_blocks = block_ids.shape
-        for g in range(n_groups):
-            keys = block_ids[g]
-            staged = self._load(back.fetch_group, keys)
+        if lane_offsets is None:
+            fetch, to_dev = back.fetch_group, back.stage_to_device
+            dispatch, await_ = back.dispatch_result, back.await_result
+            store = back.store_group
+            group_keys = [block_ids[g] for g in range(n_groups)]
+        else:
+            fetch, to_dev = back.fetch_group_batch, back.stage_to_device_batch
+            dispatch, await_ = (back.dispatch_result_batch,
+                                back.await_result_batch)
+            store = back.store_group_batch
+            offs = np.asarray(lane_offsets)[:, None]
+            group_keys = [offs + block_ids[g][None, :]
+                          for g in range(n_groups)]
+        for keys in group_keys:
+            staged = self._load(fetch, keys)
             t0 = time.perf_counter()
-            planes = back.stage_to_device(staged, self.device)
+            planes = to_dev(staged, self.device)
             out = fn(planes, *mats)
-            ticket = back.dispatch_result(out, n_blocks)
+            ticket = dispatch(out, n_blocks)
             self.t_compute += time.perf_counter() - t0
             t0 = time.perf_counter()
-            result = back.await_result(ticket)
+            result = await_(ticket)
             self.t_fetch += time.perf_counter() - t0
-            self._store(back.store_group, keys, result)
+            self._store(store, keys, result)
 
     # -- the double-buffered wave loop ---------------------------------------
     def _run_overlapped(self, items, wave_fn, mats, n_blocks) -> None:

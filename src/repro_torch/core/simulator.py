@@ -170,10 +170,14 @@ class Simulator:
                 new values reuses the partition, compiled stage functions
                 and schedules; only the fused gate operands are rebuilt
                 (and cached per binding).
-            trajectories: K stochastic noise trajectories as one
-                lane-batched run — not ported yet (ROADMAP A7): any
-                value raises ``NotImplementedError``.
-            seed: base trajectory seed (kept for the signature).
+            trajectories: run K stochastic noise trajectories of the
+                circuit as ONE lane-batched execution and return a
+                :class:`BatchResult` (lane j realizes the circuit's Pauli
+                channels with rng seed ``seed + j``).  Required for
+                circuits containing channels (see
+                ``library.with_depolarizing``); a deterministic circuit
+                runs K identical lanes (a batching benchmark).
+            seed: base trajectory seed (lane j draws with ``seed + j``).
             checkpoint_path: with ``checkpoint_every=k``, snapshot the
                 store + progress every k stages so an interrupted run can
                 :meth:`resume` from the last completed checkpoint.  A
@@ -184,13 +188,18 @@ class Simulator:
             checkpoint_every: checkpoint period in stages (0 = never).
 
         Returns:
-            A live :class:`SimResult`; invalidated by the next ``run()`` or
+            A live :class:`SimResult` (or :class:`BatchResult` with
+            ``trajectories``); invalidated by the next ``run()`` or
             :meth:`close` (persist with ``result.save(path)``).
         """
         if trajectories is not None:
-            raise NotImplementedError(
-                "run(trajectories=K) is not ported to repro_torch yet "
-                "(ROADMAP A7)")
+            if checkpoint_path or checkpoint_every:
+                raise ValueError(
+                    "mid-run checkpointing is not supported for batched "
+                    "trajectory runs")
+            return self.run_batch(
+                [params] * trajectories,
+                seeds=[seed + j for j in range(trajectories)])
         if self._closed:
             raise RuntimeError("Simulator is closed")
         if self._engine is None:
@@ -313,10 +322,71 @@ class Simulator:
                   checkpoint_path: str | None = None,
                   checkpoint_every: int = 0) -> BatchResult:
         """Execute K parameter bindings (and/or noise trajectories) as
-        ONE lane-batched run — not ported yet (ROADMAP A7)."""
-        raise NotImplementedError(
-            "Simulator.run_batch is not ported to repro_torch yet "
-            "(ROADMAP A7)")
+        ONE lane-batched run.
+
+        Every lane shares the partition, the compiled transpose-
+        minimizing schedules, and every stage call, boundary crossing
+        and store barrier: per (stage, wave) the whole batch costs one
+        call (one kernel launch per op) instead of K.
+
+        Args:
+            params_list: one params dict (or None) per lane.
+            seeds: per-lane trajectory seeds realizing stochastic Pauli
+                channels; defaults to ``range(K)`` for a stochastic
+                circuit and no draws otherwise.
+
+        Returns:
+            A live :class:`BatchResult` — per-lane :class:`SimResult`
+            views plus lane-averaged ``expectation`` — invalidated by
+            the next run.  When a memory budget is set and K lanes
+            exceed it, the engine warns and executes chunked
+            sub-batches (``stats.n_batch_chunks``); results are
+            identical.
+
+        Mid-run checkpointing is NOT supported for batched runs — the
+        store holds K lane states under one manifest, and a snapshot
+        taken mid-batch could not be resumed into any single-lane
+        session.  Passing ``checkpoint_path``/``checkpoint_every``
+        raises ``ValueError`` up front; checkpoint per-binding ``run()``
+        calls instead, or persist finished lanes from the
+        :class:`BatchResult`.
+        """
+        if checkpoint_path is not None or checkpoint_every:
+            raise ValueError(
+                "run_batch does not support mid-run checkpointing: the "
+                "store holds K lane states under one manifest and a "
+                "mid-batch snapshot cannot be resumed; checkpoint "
+                "per-binding run() calls instead, or persist lanes via "
+                "BatchResult readout")
+        if self._closed:
+            raise RuntimeError("Simulator is closed")
+        if self._engine is None:
+            raise RuntimeError(
+                "readout-only session (resumed without a circuit); pass "
+                "circuit= to Simulator.resume to re-run")
+        if self._start_stage > 0:
+            raise RuntimeError(
+                "a partial checkpoint is pending; finish it with run() "
+                "before starting a batched run")
+        params_list = list(params_list)
+        if seeds is None:
+            seeds = (list(range(len(params_list)))
+                     if self._engine._stochastic
+                     else [None] * len(params_list))
+        if len(seeds) != len(params_list):
+            raise ValueError(
+                f"{len(params_list)} lanes but {len(seeds)} seeds")
+        bindings = tuple(zip(params_list, seeds))
+        # validate BEFORE invalidating the previous (still intact) result
+        self._engine._validate_bindings(bindings)
+        self._generation += 1
+        self._batched = True
+        self._engine.run_batch(bindings)
+        self._last = BatchResult(self._backend, self.n_qubits,
+                                 self.local_bits, len(bindings),
+                                 stats=self._engine.stats, owner=self,
+                                 generation=self._generation)
+        return self._last
 
     def result(self) -> "SimResult | BatchResult":
         """The latest run's (or resumed checkpoint's) readout handle."""

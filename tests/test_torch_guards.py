@@ -1,6 +1,6 @@
 """Guards of the port: it imports neither JAX nor the JAX package, nothing
-falls back silently (no GPU, batched runs, several devices), and the
-interop helpers carry circuits and arrays across."""
+falls back silently (no GPU, several devices), and the interop helpers
+carry circuits and arrays across."""
 import ast
 import os
 import shutil
@@ -48,16 +48,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def _cpu_sim(circuit, **kw):
     return Simulator(circuit, EngineConfig(devices=[CPU], **kw))
-
-
-def test_batched_runs_raise_until_ported():
-    with _cpu_sim(build_circuit("ghz_state", 6)) as sim:
-        with pytest.raises(NotImplementedError, match="A7"):
-            sim.run_batch([None, None])
-        with pytest.raises(NotImplementedError, match="A7"):
-            sim.run(trajectories=2)
-        with pytest.raises(NotImplementedError, match="A7"):
-            sim._engine.run_batch([(None, None)])
 
 
 @pytest.mark.parametrize("kw,item", [
