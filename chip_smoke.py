@@ -28,8 +28,15 @@ Phases, in order (any failure exits non-zero and prints no result):
                   the tensor cores for K >= 64), gemm_planes_mid,
                   diag_apply (within 1e-4 on unit-scale inputs; B7 also
                   at every K in 2 ... 32 with a ragged I, O > 1 with I
-                  below a slab, planes off 16-byte alignment) and the
-                  packing kernels (bit for bit).  gemm_planes_batch and
+                  below a slab, planes off 16-byte alignment),
+                  gemm_planes_mid_batch (the wave path's MidGemmOp, within
+                  rtol 1e-5, atol 1e-6: main_batch's wave of 16 rows at
+                  (O, K, I) = (1, 4, 2^20) and (16384, 32, 8), timed
+                  beside one complex torch.einsum, distinct U per lane;
+                  K = 128 with U at lane stride 0, narrow, ragged and
+                  unaligned shapes untimed; row l of a 16-lane call bit
+                  for bit the one-lane call on row l at L = 1, 2, 3, 16)
+                  and the packing kernels (bit for bit).  gemm_planes_batch and
                   gemm_planes at K <= 32 (the ring body) are held within
                   rtol 1e-5, atol 1e-6, also at every K in 2 ... 32 with
                   three lanes and B at lane stride 0, R*K past a ragged
@@ -87,7 +94,9 @@ Phases, in order (any failure exits non-zero and prints no result):
                   dense / diagonal fused gate per group, encode and decode
                   once per group, gemm_planes_batch never.
                   Each main path runs with every launch count set to 0 just
-                  before and read just after; the boundary bytes must equal
+                  before and read just after (the wave paths must launch
+                  gemm_planes_batch and gemm_planes_mid_batch); the
+                  boundary bytes must equal
                   the plan's; fidelity against the port's dense oracle
                   computed on the card, then sample(1024) and one
                   expectation as readout.  With --profile each run is
@@ -99,22 +108,40 @@ Phases, in order (any failure exits non-zero and prints no result):
                   .run(trajectories=8, seed=0): 8 noise trajectories as
                   one lane-batched run, each wave 2 groups x 8 lanes = 16
                   rows.  Exact launches (gemm_planes_batch once per GemmOp
-                  per wave, encode and decode once per wave, nothing
-                  else), boundary bytes equal to the plan's times 8, each
+                  and gemm_planes_mid_batch once per MidGemmOp per wave,
+                  encode and decode once per wave, nothing else: no
+                  cuBLAS call is left on the wave path), boundary bytes
+                  equal to the plan's times 8, each
                   lane's fidelity >= 0.99 against the dense oracle of its
                   realization on the card, BatchResult.expectation of
                   <sum Z> within 1e-2 of the oracles' mean, sample(1024)
-                  on lane 0 (with --profile a main_batch_profile line).
+                  on lane 0 (with --profile a main_batch_profile line,
+                  which must list no library matrix-product kernel).
 9. service      — SimService on 4 co-admitted qaoa_template(22) jobs with
                   the device codec at local_bits 18 (8 stages, waves of
                   2 groups x 4 lanes): one merged width-4 run_batch, each
                   lane's state bit for bit that of the job run solo
-                  through a fresh SimService.
-10. cli         — python -m repro_torch.launch.qsim --circuit qft
+                  through a fresh SimService; then the first two jobs
+                  merged at width 2, bit for bit the same solo runs.
+10. precision   — TF32 turned on (set_float32_matmul_precision("high"),
+                  allow_tf32 = True): one bound stage of qft-24 through
+                  execute_schedule_batched (use_kernel True and False)
+                  and execute_schedule (use_kernel False), and
+                  simulate_dense at 20 qubits, each within rtol 1e-5,
+                  atol 1e-6 of the same call with TF32 off; every flag
+                  must read afterwards what the phase set.
+11. resilience  — ising-24 on the device codec with the disk tier forced
+                  (1 MiB of RAM), checkpointed every 2 stages: a
+                  codec.decode crash two thirds of the way in, resumed
+                  from its checkpoint, bit for bit the uninterrupted run;
+                  a store.spill_read corruption detected and replayed
+                  (n_replays >= 1) to the same state.  Prints walls,
+                  checkpoint bytes, replays and emergency checkpoints.
+12. cli         — python -m repro_torch.launch.qsim --circuit qft
                   --qubits 20 --noise 0.02 --trajectories 4
                   --codec-backend device --expect zsum as a subprocess:
                   exit 0, the batched-run line and the average printed.
-11. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
+13. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
                   drawn on cuda:0 from --seed): make_prefill_step on 8
                   random prompts of 2,048 tokens with max_len 4,096,
                   compress_prefill_cache, 32 greedy steps of
@@ -127,7 +154,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   >= 1.7x smaller than bf16.  Prints prefill s, decode ms a
                   step, tokens/s, peak device memory (and with --profile
                   the device's busy and idle share).
-12. report      — one JSON line of kernels, the card's name and power
+14. report      — one JSON line of kernels, the card's name and power
                   limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
@@ -181,6 +208,13 @@ SERVICE_BUDGET = 16 << 30
 #: 8 stages, a wave 2 groups x 4 lanes with MidGemmOps among its ops
 SERVICE_LOCAL_BITS = 18
 SCHEDULE_RTOL = 1e-5             # execute_schedule vs the batched form
+PRECISION_DENSE_QUBITS = 20      # precision: simulate_dense with TF32 on
+#: resilience: ising-24 (its amplitudes take many magnitudes, so the
+#: codec's codes take many values; 12 stages of 4 groups), checkpointed
+#: every 2 stages with the disk tier forced
+RESILIENCE_CIRCUIT = ("ising", 24)
+RESILIENCE_EVERY = 2
+RESILIENCE_RAM = 1 << 20
 ATTN_ATOL = 2e-4                 # B10/B11 vs plain, the Pallas tests' bound
 BF16_RTOL = 2.0 ** -7            # one bf16 step: ulp(x) <= 2^-7 |x|
 KV_ORDER_TOL = 2.0 ** -15        # of max|v|: B11 vs its plain version in its
@@ -670,6 +704,62 @@ def gemm_planes_mid_case(O: int, K: int, I: int, seed: int,
         O=O, K=K, I=I, offset=offset)
 
 
+def mid_batch_operands(L: int, O: int, K: int, I: int, seed: int,
+                       broadcast: bool, offset: int = 0):
+    """Unit-scale (L, O, K, I) A planes on the card and U planes (L, K, K)
+    scaled by 1/sqrt(K): one per lane, or one at lane stride 0."""
+    import numpy as np
+    ar, ai = unit_planes((L, O, K, I), seed, offset)
+    ur, ui = unit_planes((1 if broadcast else L, K, K), seed + 1)
+    ur, ui = ur / np.sqrt(K), ui / np.sqrt(K)
+    return ar, ai, ur.expand(L, K, K), ui.expand(L, K, K)
+
+
+def gemm_planes_mid_batch_case(L: int, O: int, K: int, I: int, seed: int,
+                               timed: bool, broadcast: bool = False,
+                               offset: int = 0) -> dict:
+    """The wave path's MidGemmOp kernel against its plain version (the
+    einsum it replaced) within RTOL, ATOL; timed beside one complex
+    torch.einsum of the same contraction."""
+    import torch
+    from repro_torch.kernels import gate_apply as ga
+    from repro_torch.kernels import ref
+    args = mid_batch_operands(L, O, K, I, seed, broadcast, offset)
+    n = L * O * K * I
+    return gate_check(
+        "gemm_planes_mid_batch", ga.gemm_planes_mid_batch,
+        ref.gemm_planes_mid_batch_ref, args, (0, 1), timed,
+        4 * (4 * n + 2 * (1 if broadcast else L) * K * K), 8 * n * K,
+        (lambda u, a: torch.einsum("ljk,loki->loji", u, a),
+         lambda a: (torch.complex(a[2], a[3]), torch.complex(a[0], a[1]))),
+        tight=True, L=L, O=O, K=K, I=I, broadcast=broadcast, offset=offset)
+
+
+def mid_batch_row_invariance(O: int, K: int, I: int, seed: int) -> dict:
+    """Row l of an L-lane gemm_planes_mid_batch call against the one-lane
+    call on row l's operands, bit for bit, for L in MID_BATCH_LANES."""
+    import torch
+    from repro_torch.kernels import gate_apply as ga
+    ar, ai, ur, ui = mid_batch_operands(16, O, K, I, seed, False)
+    solo = [ga.gemm_planes_mid_batch(ar[j:j + 1].clone(),
+                                     ai[j:j + 1].clone(), ur[j:j + 1],
+                                     ui[j:j + 1]) for j in range(16)]
+    equal = {}
+    for L in MID_BATCH_LANES:
+        cr, ci = ga.gemm_planes_mid_batch(ar[:L], ai[:L], ur[:L], ui[:L])
+        equal[L] = all(torch.equal(cr[j], solo[j][0][0])
+                       and torch.equal(ci[j], solo[j][1][0])
+                       for j in range(L))
+    out = {"O": O, "K": K, "I": I, "lanes": list(MID_BATCH_LANES),
+           "bitwise_equal": [equal[L] for L in MID_BATCH_LANES]}
+    print("kernel_check gemm_planes_mid_batch_row_invariance "
+          + json.dumps(out), flush=True)
+    if not all(equal.values()):
+        fail(f"gemm_planes_mid_batch rows depend on the lane count at "
+             f"(O, K, I) = {(O, K, I)}: {equal}")
+    return out
+
+
 def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
     import torch
     from repro_torch.kernels import gate_apply as ga
@@ -690,13 +780,25 @@ def diag_apply_case(R: int, K: int, seed: int, timed: bool) -> dict:
 MID_RING_SHAPES = [s for K in (2, 4, 8, 16, 32)
                    for s in ((3, K, (1 << 21) // K + 3, 0), (2, K, 1001, 1),
                              (5, K, 77, 0), (2, K, 4096, 1))]
+#: gemm_planes_mid_batch: main_batch's wave (16 rows of 2^22 amplitudes)
+#: at its wide (1, 4, 2^20) and narrow (16384, 32, 8) MidGemmOps, timed
+MID_BATCH_TIMED = [(16, 1, 4, 1 << 20), (16, 16384, 32, 8)]
+#: (L, O, K, I, lane stride 0, offset), untimed: K = 128 with one U for
+#: every lane, I narrower than a slab and not a multiple of 4, I ragged,
+#: planes off 16-byte alignment
+MID_BATCH_SHAPES = [(4, 16, 128, 64, True, 0), (3, 7, 16, 24, False, 0),
+                    (5, 33, 8, 6, True, 1), (2, 5, 32, 77, False, 1),
+                    (3, 2, 64, 256, False, 0)]
+MID_BATCH_LANES = (1, 2, 3, 16)
 
 
 def gate_phase() -> dict:
     """B6 at R*K = 2^22 (K = 4, 16, 32: the per-gate and schedule shapes
     at the default fusion width; 64, 128: max_fused_qubits 6 and 7, on the
-    split-TF32 tensor-core kernel), B7 at the schedules' (O, K, I), B8 at
-    K = 4, 32, 128; then small, odd and ragged shapes untimed."""
+    split-TF32 tensor-core kernel), B7 at the schedules' (O, K, I), its
+    lane-batched form at main_batch's wave (and its rows bit for bit
+    against one-lane calls), B8 at K = 4, 32, 128; then small, odd and
+    ragged shapes untimed."""
     b6 = [gemm_planes_case(GROUP // K, K, seed=10 + K, timed=True)
           for K in (4, 16, 32, 64, 128)]
     b6 += [gemm_planes_case(R, K, seed=20 + i, timed=False)
@@ -717,11 +819,19 @@ def gate_phase() -> dict:
     b7 += [gemm_planes_mid_case(O, K, I, seed=90 + i, timed=False,
                                 offset=off)
            for i, (O, K, I, off) in enumerate(MID_RING_SHAPES)]
+    b7b = [gemm_planes_mid_batch_case(L, O, K, I, seed=70 + i, timed=True)
+           for i, (L, O, K, I) in enumerate(MID_BATCH_TIMED)]
+    b7b += [gemm_planes_mid_batch_case(L, O, K, I, seed=75 + i, timed=False,
+                                       broadcast=bc, offset=off)
+            for i, (L, O, K, I, bc, off) in enumerate(MID_BATCH_SHAPES)]
+    for i, (_, O, K, I) in enumerate(MID_BATCH_TIMED):
+        mid_batch_row_invariance(O, K, I, seed=85 + i)
     b8 = [diag_apply_case(GROUP // K, K, seed=50 + K, timed=True)
           for K in (4, 32, 128)]
     b8 += [diag_apply_case(R, K, seed=60 + i, timed=False)
            for i, (R, K) in enumerate([(3, 2), (5, 1), (7, 16)])]
-    return {"gemm_planes": b6, "gemm_planes_mid": b7, "diag_apply": b8}
+    return {"gemm_planes": b6, "gemm_planes_mid": b7,
+            "gemm_planes_mid_batch": b7b, "diag_apply": b8}
 
 
 # -- phase 2: the standalone packing kernels, bit for bit ---------------------
@@ -1376,28 +1486,36 @@ def single_group_phase() -> dict:
 
 # -- phases 5 to 7: the main paths --------------------------------------------
 
+#: kernel names of library matrix products (cuBLAS, cuBLASLt, CUTLASS)
+LIBRARY_GEMM = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
+
+
 def device_profile(prof, wall_s: float) -> dict:
-    """Device time by kernel name from a CUDA-activity trace, and the
-    share of ``wall_s`` the device spent idle (one stream: the busy times
-    do not overlap)."""
+    """Device time by kernel name from a CUDA-activity trace, the share
+    of ``wall_s`` the device spent idle (one stream: the busy times do not
+    overlap), and every library matrix-product kernel the trace holds."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    library = [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows
+               if "gemm_planes" not in k
+               and any(w in k.lower() for w in LIBRARY_GEMM)]
     return {"device_busy_ms": busy_ms, "wall_s": wall_s,
             "idle_share": 1.0 - busy_ms / 1e3 / wall_s,
             "top": [{"name": k[:80], "ms": ms, "count": c}
-                    for k, ms, c in rows[:12]]}
+                    for k, ms, c in rows[:12]],
+            "library_gemm": library}
 
 
 def expected_launches(sim, backend: str, gate_schedule: bool) -> dict:
     """The launches a run must show: on the per-gate path exactly one
     gemm_planes per dense and one diag_apply per diagonal fused gate per
     group, and one encode and one decode per group, from the bound
-    stages; on the wave path gemm_planes_batch (and the codec kernels)
-    at least once (None = at least once)."""
+    stages; on the wave path gemm_planes_batch, gemm_planes_mid_batch
+    (and the codec kernels) at least once (None = at least once)."""
     if gate_schedule:
-        want = {"gemm_planes_batch": None}
+        want = {"gemm_planes_batch": None, "gemm_planes_mid_batch": None}
         if backend == "device":
             want.update(encode=None, decode=None)
         return want
@@ -1409,6 +1527,7 @@ def expected_launches(sim, backend: str, gate_schedule: bool) -> dict:
         "diag_apply": sum(sum(d for _, d in bs.plan) * bs.layout.n_groups
                           for bs in bound),
         "gemm_planes_batch": 0,
+        "gemm_planes_mid_batch": 0,
         "encode": groups if backend == "device" else 0,
         "decode": groups if backend == "device" else 0}
 
@@ -1500,13 +1619,15 @@ def main_phase(label: str, qubits: int, backend: str, profile: bool,
     return launches
 
 
-# -- phases 8 to 10: batched runs, the service and the command line ----------
+# -- phases 8 to 12: batched runs, the service, precision, resilience and ---
+# -- the command line --------------------------------------------------------
 
 def batch_launches(sim, bindings) -> dict:
     """The launches a batched run must show, from its bound stages: one
-    gemm_planes_batch per GemmOp per wave and one encode and one decode
-    per wave, however many lanes a wave holds; no other kernel."""
-    from repro_torch.core.schedule import GemmOp
+    gemm_planes_batch per GemmOp, one gemm_planes_mid_batch per MidGemmOp
+    and one encode and one decode per wave, however many lanes a wave
+    holds; no other kernel."""
+    from repro_torch.core.schedule import GemmOp, MidGemmOp
     eng = sim._engine
     depth = eng.cfg.pipeline_depth
     want = {k: 0 for k in read_counts()}
@@ -1517,6 +1638,8 @@ def batch_launches(sim, bindings) -> dict:
         waves = -(-n // min(depth, n))
         want["gemm_planes_batch"] += waves * sum(
             isinstance(op, GemmOp) for op in bs.sched.ops)
+        want["gemm_planes_mid_batch"] += waves * sum(
+            isinstance(op, MidGemmOp) for op in bs.sched.ops)
         want["encode"] += waves
         want["decode"] += waves
     return want
@@ -1585,8 +1708,11 @@ def batch_phase(profile: bool) -> dict:
         "max_memory_allocated": peak_dev, "launches": launches,
         "expected_launches": want}), flush=True)
     if profile:
-        print(f"{label}_profile " + json.dumps(device_profile(prof, wall)),
-              flush=True)
+        trace_row = device_profile(prof, wall)
+        print(f"{label}_profile " + json.dumps(trace_row), flush=True)
+        if trace_row["library_gemm"]:
+            fail(f"the {label} path ran library matrix products: "
+                 f"{trace_row['library_gemm']}")
     if launches != want:
         fail(f"the {label} path launched {launches}, not {want}")
     # every lane's blocks cross once each way a stage, as the plan prices
@@ -1633,7 +1759,8 @@ def service_phase() -> dict:
     the device codec on cuda:0 (launch counts set to 0 just before the
     drain, read just after): they must merge into one run_batch, and each
     lane's final state must equal bit for bit the same job run solo
-    through a fresh SimService (width 1).  Returns the launches."""
+    through a fresh SimService (width 1); then the first two jobs merged
+    at width 2, held to the same solo runs.  Returns the launches."""
     import numpy as np
     import torch
     from repro_torch import EngineConfig, SimService, qaoa_template
@@ -1656,6 +1783,12 @@ def service_phase() -> dict:
         wall = time.perf_counter() - t0
         launches = read_counts()
         summary = svc.stats.summary()
+    # the first two jobs again, merged at width 2
+    with SimService(SERVICE_BUDGET, config=cfg) as svc:
+        pair = [svc.submit(qc, params=p, readout=grab) for p in points[:2]]
+        t0 = time.perf_counter()
+        svc.drain()
+        pair_wall = time.perf_counter() - t0
     solo, solo_s = [], []
     for p in points:
         with SimService(SERVICE_BUDGET, config=cfg) as one:
@@ -1666,27 +1799,234 @@ def service_phase() -> dict:
             solo.append(job)
     equal = [bool(np.array_equal(m.result["readout"], s.result["readout"]))
              for m, s in zip(jobs, solo)]
+    pair_equal = [bool(np.array_equal(m.result["readout"],
+                                      s.result["readout"]))
+                  for m, s in zip(pair, solo)]
     finite = all(bool(np.isfinite(m.result["readout"]).all()) for m in jobs)
     print(f"{label}_check " + json.dumps({
         "jobs": SERVICE_JOBS, "qubits": SERVICE_QUBITS,
+        "merge_widths_checked": [SERVICE_JOBS, 2],
         "merge_widths": [j.merge_width for j in jobs],
+        "pair_widths": [j.merge_width for j in pair],
         "solo_widths": [j.merge_width for j in solo],
-        "states": [j.state for j in jobs] + [j.state for j in solo],
-        "merged_wall_s": wall, "solo_wall_s": solo_s,
-        "bitwise_equal": equal, "finite": finite, "stats": summary,
+        "states": [j.state for j in jobs + pair + solo],
+        "merged_wall_s": wall, "pair_wall_s": pair_wall,
+        "solo_wall_s": solo_s, "bitwise_equal": equal,
+        "pair_bitwise_equal": pair_equal, "finite": finite,
+        "stats": summary,
         "launches": {k: v for k, v in launches.items() if v}}), flush=True)
-    if any(j.state != "done" for j in jobs + solo):
+    if any(j.state != "done" for j in jobs + pair + solo):
         fail(f"{label}: a job did not finish")
     if [j.merge_width for j in jobs] != [SERVICE_JOBS] * SERVICE_JOBS:
         fail(f"{label}: the {SERVICE_JOBS} jobs did not merge into one "
              "run_batch")
-    if not (all(equal) and finite):
+    if [j.merge_width for j in pair] != [2, 2]:
+        fail(f"{label}: the two jobs did not merge into one run_batch")
+    if not (all(equal) and all(pair_equal) and finite):
         fail(f"{label}: a merged lane differs from its solo run "
-             f"({equal})")
-    for k in ("gemm_planes_batch", "encode", "decode"):
+             f"(width {SERVICE_JOBS}: {equal}; width 2: {pair_equal})")
+    for k in ("gemm_planes_batch", "gemm_planes_mid_batch", "encode",
+              "decode"):
         if launches[k] <= 0:
             fail(f"the {label} path launched {k} no time")
     return launches
+
+
+def tf32_flags() -> dict:
+    """The TF32 flags as torch reports them ("error" where torch refuses
+    to answer for a mix of its legacy and new APIs)."""
+    import torch
+    m = torch.backends.cuda.matmul
+    out = {}
+    for name, get in (("allow_tf32", lambda: m.allow_tf32),
+                      ("fp32_precision",
+                       lambda: getattr(m, "fp32_precision", None)),
+                      ("float32_matmul_precision",
+                       torch.get_float32_matmul_precision)):
+        try:
+            out[name] = get()
+        except RuntimeError:
+            out[name] = "error"
+    return out
+
+
+def precision_phase() -> None:
+    """With TF32 turned on the way a caller would
+    (torch.set_float32_matmul_precision("high"), allow_tf32 = True), one
+    bound stage of qft-24 (the one with the most GemmOps and MidGemmOps)
+    through execute_schedule_batched (use_kernel True and False, a wave
+    of 2 groups) and execute_schedule (use_kernel False, one group), and
+    simulate_dense at PRECISION_DENSE_QUBITS qubits: each within RTOL,
+    ATOL of the same call with TF32 off.  Every flag must read afterwards
+    what the phase set; then TF32 goes off again."""
+    import torch
+    from repro_torch import EngineConfig, Simulator, build_circuit
+    from repro_torch.core.dense_engine import simulate_dense
+    from repro_torch.core.schedule import (GemmOp, MidGemmOp,
+                                           execute_schedule,
+                                           execute_schedule_batched)
+    label = "precision"
+    with Simulator(build_circuit("qft", BATCH_QUBITS), EngineConfig()) as sim:
+        bound = [bs for bs in sim._engine._bind_stages(None) if bs.plan]
+
+        def kinds(bs):
+            ops = bs.sched.ops
+            return (sum(isinstance(op, GemmOp) for op in ops),
+                    sum(isinstance(op, MidGemmOp) for op in ops))
+        bs = max(bound, key=lambda b: min(kinds(b)))
+        sched, mats = bs.sched, bs.mats
+    if min(kinds(bs)) <= 0:
+        fail(f"{label}: no qft-{BATCH_QUBITS} stage holds both a GemmOp "
+             "and a MidGemmOp")
+    g = torch.Generator(device="cuda:0").manual_seed(24)
+    wave = torch.randn((2, 2, 1 << sched.nv), generator=g, device="cuda:0")
+    wave /= wave.norm(dim=(1, 2), keepdim=True)
+    bmats = [m.unsqueeze(0).expand((2,) + tuple(m.shape)) for m in mats]
+    dense = build_circuit("qft", PRECISION_DENSE_QUBITS)
+    calls = {
+        "batched_use_kernel": lambda: execute_schedule_batched(
+            sched, wave.clone(), bmats, use_kernel=True),
+        "batched_plain": lambda: execute_schedule_batched(
+            sched, wave.clone(), bmats, use_kernel=False),
+        "single_group_plain": lambda: execute_schedule(
+            sched, wave[0].clone(), mats, use_kernel=False),
+        "simulate_dense": lambda: torch.view_as_real(
+            simulate_dense(dense, device="cuda:0")),
+    }
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    set_flags = tf32_flags()
+    on = {}
+    after = {}
+    for name, call in calls.items():
+        on[name] = call()
+        torch.cuda.synchronize()
+        after[name] = tf32_flags()
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    off_flags = tf32_flags()
+    rows = {}
+    for name, call in calls.items():
+        want = call()
+        torch.cuda.synchronize()
+        rows[name] = {
+            "max_abs_diff": float((on[name] - want).abs().max()),
+            "ok": bool(torch.allclose(on[name], want, rtol=RTOL,
+                                      atol=ATOL))}
+    print(f"{label}_check " + json.dumps({
+        "stage_ops": {"gemm": kinds(bs)[0], "mid_gemm": kinds(bs)[1],
+                      "all": len(sched.ops)},
+        "flags_set": set_flags, "flags_after": after,
+        "flags_off": off_flags, "tolerance": [RTOL, ATOL],
+        "calls": rows}), flush=True)
+    for name, flags in after.items():
+        if flags != set_flags:
+            fail(f"{label}: {name} left the TF32 flags at {flags}, not "
+                 f"{set_flags}")
+    if set_flags["allow_tf32"] is not True or off_flags["allow_tf32"]:
+        fail(f"{label}: TF32 did not turn on and off ({set_flags}, "
+             f"{off_flags})")
+    bad = [name for name, row in rows.items() if not row["ok"]]
+    if bad:
+        fail(f"{label}: {bad} moved beyond rtol {RTOL}, atol {ATOL} with "
+             "TF32 on")
+
+
+def resilience_phase() -> None:
+    """Resilience on the card, device codec, the disk tier forced: a
+    checkpointed ising-24 run (RESILIENCE_CIRCUIT) counting the fault
+    points' hits; a codec.decode crash two thirds of the way in, resumed
+    from its last checkpoint, must reproduce the uninterrupted state bit
+    for bit; a store.spill_read corruption two thirds of the way in must
+    be detected and replayed from the last checkpoint, with the same
+    state."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import (EngineConfig, Simulator, build_circuit,
+                             inject_faults)
+    from repro_torch.faults import InjectedCrash
+    label = "resilience"
+    name, n = RESILIENCE_CIRCUIT
+    qc = build_circuit(name, n)
+
+    def cfg():
+        return EngineConfig(codec_backend="device",
+                            ram_budget_bytes=RESILIENCE_RAM)
+
+    never = 1 << 40
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        ck = os.path.join(tmp, "ck.bmq")
+        with inject_faults([f"codec.decode:ioerror:hit={never}",
+                            f"store.spill_read:ioerror:hit={never}"]) as inj:
+            with Simulator(qc, cfg()) as sim:
+                t0 = time.perf_counter()
+                result = sim.run(checkpoint_path=ck,
+                                 checkpoint_every=RESILIENCE_EVERY)
+                torch.cuda.synchronize()
+                walls["uninterrupted"] = time.perf_counter() - t0
+                hits = dict(inj._hits)
+                want = result.statevector(force=True)
+                st = sim.stats
+                base = {"stages": st.n_stages, "n_spills": st.n_spills,
+                        "disk_bytes": st.disk_bytes}
+        ck_bytes = os.path.getsize(ck)
+        os.unlink(ck)
+        crash_hit = 2 * hits["codec.decode"] // 3
+        crashed = False
+        with inject_faults([f"codec.decode:crash:hit={crash_hit}"]):
+            with Simulator(qc, cfg()) as sim:
+                t0 = time.perf_counter()
+                try:
+                    sim.run(checkpoint_path=ck,
+                            checkpoint_every=RESILIENCE_EVERY)
+                except InjectedCrash:
+                    crashed = True
+                walls["crashed"] = time.perf_counter() - t0
+        if not crashed or not os.path.exists(ck):
+            fail(f"{label}: the codec.decode crash at hit {crash_hit} did "
+                 "not end the run with a checkpoint on disk")
+        with Simulator.resume(ck, circuit=qc, config=cfg()) as sim:
+            start = sim._start_stage
+            t0 = time.perf_counter()
+            got = sim.run().statevector(force=True)
+            walls["resumed"] = time.perf_counter() - t0
+        resumed_equal = bool(np.array_equal(got, want))
+        corrupt_hit = 2 * hits["store.spill_read"] // 3
+        with inject_faults([f"store.spill_read:corrupt:hit={corrupt_hit}"]) \
+                as inj:
+            with Simulator(qc, cfg()) as sim:
+                t0 = time.perf_counter()
+                got = sim.run(checkpoint_path=os.path.join(tmp, "ck2.bmq"),
+                              checkpoint_every=RESILIENCE_EVERY) \
+                    .statevector(force=True)
+                walls["replayed"] = time.perf_counter() - t0
+                replays = sim.stats.n_replays
+                emergency = sim.stats.n_emergency_checkpoints
+                detected = sim.stats.n_corruptions_detected
+        fired = inj.fired["store.spill_read:corrupt"]
+        replayed_equal = bool(np.array_equal(got, want))
+    print(f"{label}_stats " + json.dumps({
+        "circuit": f"{name}-{n}", "codec": "device",
+        "ram_budget_bytes": RESILIENCE_RAM,
+        "checkpoint_every": RESILIENCE_EVERY, **base, "walls_s": walls,
+        "checkpoint_bytes": ck_bytes, "hits": hits,
+        "crash_hit": crash_hit, "resumed_from_stage": start,
+        "resumed_bitwise_equal": resumed_equal,
+        "corrupt_hit": corrupt_hit, "corruptions_fired": fired,
+        "n_corruptions_detected": detected, "n_replays": replays,
+        "n_emergency_checkpoints": emergency,
+        "replayed_bitwise_equal": replayed_equal}), flush=True)
+    if not 0 < start < base["stages"]:
+        fail(f"{label}: resumed at stage {start} of {base['stages']}")
+    if not resumed_equal:
+        fail(f"{label}: the resumed run differs from the uninterrupted one")
+    if fired != 1 or replays < 1 or not replayed_equal:
+        fail(f"{label}: the corrupted spill read (fired {fired}) was not "
+             f"replayed to the same state ({replays} replays, equal "
+             f"{replayed_equal})")
 
 
 CLI_ARGS = ["--circuit", "qft", "--qubits", "20", "--noise", "0.02",
@@ -1718,7 +2058,7 @@ def cli_phase() -> None:
         fail("qsim printed no batched-run line or no trajectory average")
 
 
-# -- phase 11: LLM serving on the compressed KV cache -------------------------
+# -- phase 13: LLM serving on the compressed KV cache -------------------------
 
 def _serve_run(cfg, params, tokens, forced=None, profile: bool = False):
     """Prefill ``tokens``, compress the cache, decode SERVE_STEPS greedy
@@ -1865,7 +2205,7 @@ def _leaves(tree):
         yield tree
 
 
-# -- phase 12: the report -----------------------------------------------------
+# -- phase 14: the report -----------------------------------------------------
 
 GATE_CU = "src/repro_torch/csrc/gate_apply.cu"
 PACK_CU = "src/repro_torch/csrc/pack.cu"
@@ -1884,6 +2224,10 @@ KERNELS = {
                     "main_pergate", {"K": 32}),
     "gemm_planes_mid": (GATE_CU, "src/repro/kernels/gate_apply.py:153",
                         "single_group", {"K": 32}),
+    # the lane-batched form of B7 has no Pallas kernel: repro runs the
+    # wave path's MidGemmOp as this XLA einsum
+    "gemm_planes_mid_batch": (GATE_CU, "src/repro/core/schedule.py:365",
+                              "main_batch", {"K": 32}),
     "diag_apply": (GATE_CU, "src/repro/kernels/gate_apply.py:186",
                    "main_pergate", {"K": 32}),
     "pack_codes_tiles": (PACK_CU, "src/repro/kernels/pack.py:61", "ops",
@@ -1981,6 +2325,8 @@ def main() -> int:
                                           gate_schedule=False)
     launches["main_batch"] = batch_phase(args.profile)
     launches["service"] = service_phase()
+    precision_phase()
+    resilience_phase()
     cli_phase()
     launches["serve"] = serve_phase(args.seed, args.profile)
     print(json.dumps({"kernels": kernel_report(checks, launches)}),

@@ -67,7 +67,7 @@ MID_VARIANTS = [(4, 2, 2, 0), (16, 1, 2, 0), (32, 1, 2, 0), (8, 1, 2, 0),
                 (4, 1, 2, 0), (8, 2, 2, 0), (4, 2, 4, 0), (16, 2, 2, 0),
                 (4, 2, 3, 0), (4, 2, 2, 2)]
 #: B7's launch, where a variant caps the blocks an SM
-MID_CLAMP = "  const long long units = outer * ((inner + TI - 1) / TI);\n"
+MID_CLAMP = "  const long long lane_units = mid_units<K>(outer, inner);\n"
 #: (tokens a tile, stages, blocks an SM, QK^T dims a lane) of B11
 #: (KV_TILING)
 KV_VARIANTS = [(128, 2, 2, 16), (128, 2, 2, 8), (64, 3, 2, 16),

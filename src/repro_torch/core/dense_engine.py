@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .circuit import Circuit, Gate
-from .devices import resolve_device
+from .devices import full_f32_products, resolve_device
 
 __all__ = [
     "apply_gate_dense",
@@ -38,7 +38,8 @@ def apply_matrix(state: torch.Tensor, mat, qubits: tuple[int, ...],
     Little-endian: qubit q is bit q of the flat index; ``qubits[j]`` is bit j
     of the matrix row/column index.  Implementation: view the state as an
     n-dim (2,)*n tensor whose axis a holds qubit (n-1-a), transpose the
-    target qubits to the minor-most axes (qubits[0] last), GEMM, undo.
+    target qubits to the minor-most axes (qubits[0] last), GEMM (in full
+    f32 on CUDA whatever the caller's TF32 flags), undo.
     """
     k = len(qubits)
     mat = torch.as_tensor(mat, device=state.device).to(state.dtype)
@@ -47,7 +48,8 @@ def apply_matrix(state: torch.Tensor, mat, qubits: tuple[int, ...],
     # new axis order: rest ... then qubits[k-1] ... qubits[0]
     perm = rest + [axes[j] for j in range(k - 1, -1, -1)]
     t = state.reshape((2,) * n).permute(perm).reshape(-1, 2 ** k)
-    t = t @ mat.T
+    with full_f32_products(state.device):
+        t = t @ mat.T
     inv = np.argsort(np.asarray(perm)).tolist()
     return t.reshape([2] * n).permute(inv).reshape(-1)
 

@@ -720,7 +720,7 @@ class StagePipeline:
             for fut in pending_save:
                 try:
                     fut.result()
-                except Exception:  # keep the original error
+                except Exception:  # lint: disable=typed-errors -- keep original error
                     pass
             raise
         for fut in pending_save:       # stage barrier (§4.1 semantics)

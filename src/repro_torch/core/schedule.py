@@ -35,14 +35,18 @@ op.  Execution is torch, with the hand-written kernels of
 ``kernels/gate_apply.py`` (their plain versions on CPU tensors):
 
 * :func:`execute_schedule` runs one group's (2, 2^nv) planes: every
-  ``GemmOp`` in ``gemm_planes``, a ``MidGemmOp`` with ``inner >= 128`` in
-  ``gemm_planes_mid`` (a narrower one as ``torch.einsum``), a minor-most
-  ``DiagOp`` with ``K >= 128`` in ``diag_apply`` (others as broadcasts);
+  ``GemmOp`` in ``gemm_planes``, every ``MidGemmOp`` in
+  ``gemm_planes_mid``, a minor-most ``DiagOp`` with ``K >= 128`` in
+  ``diag_apply`` (others as broadcasts);
 * :func:`execute_schedule_batched` runs a wave's (L, 2, 2^nv) rows: every
-  ``GemmOp`` in ``gemm_planes_batch``, ``MidGemmOp`` as ``torch.einsum``
-  and ``DiagOp`` as broadcasts.
+  ``GemmOp`` in ``gemm_planes_batch``, every ``MidGemmOp`` in
+  ``gemm_planes_mid_batch`` and ``DiagOp`` as broadcasts.
 
-``TransposeOp`` is a ``permute`` in both.
+``TransposeOp`` is a ``permute`` in both.  With ``use_kernel`` no f32
+product goes to cuBLAS, so neither the result nor a row's independence
+from the rows beside it hangs on cuBLAS' choice of kernel or on the
+caller's TF32 flags; without it the products are torch calls in full f32
+(:func:`~.devices.full_f32_products`).
 """
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ from dataclasses import dataclass
 from functools import lru_cache
 
 import torch
+
+from .devices import full_f32_products
 
 __all__ = ["TransposeOp", "GemmOp", "MidGemmOp", "DiagOp", "StageSchedule",
            "compile_schedule", "execute_schedule",
@@ -270,25 +276,25 @@ def execute_schedule(sched: StageSchedule, planes: torch.Tensor, mats, *,
                 from ..kernels.gate_apply import gemm_planes
                 cr, ci = gemm_planes(a2r, a2i, br, bi)
             else:
-                cr = a2r @ br - a2i @ bi
-                ci = a2r @ bi + a2i @ br
+                with full_f32_products(a2r.device):
+                    cr = a2r @ br - a2i @ bi
+                    ci = a2r @ bi + a2i @ br
             ar, ai = cr.reshape(shape), ci.reshape(shape)
         elif isinstance(op, MidGemmOp):
             K = 1 << op.k
             br, bi = _op_mat(mats[op.idx], op.bmap)
             a3r = ar.reshape(op.outer, K, op.inner)
             a3i = ai.reshape(op.outer, K, op.inner)
-            if use_kernel and op.inner >= 128:
-                # wide inner axis: one thread per inner column, coalesced
+            if use_kernel:
                 from ..kernels.gate_apply import gemm_planes_mid
                 cr, ci = gemm_planes_mid(a3r.contiguous(), a3i.contiguous(),
                                          br, bi)
             else:
-                # a narrow inner axis would leave most of a warp idle
                 def e(b, a):
                     return torch.einsum("jk,oki->oji", b, a)
-                cr = e(br, a3r) - e(bi, a3i)
-                ci = e(br, a3i) + e(bi, a3r)
+                with full_f32_products(a3r.device):
+                    cr = e(br, a3r) - e(bi, a3i)
+                    ci = e(br, a3i) + e(bi, a3r)
             ar, ai = cr.reshape(shape), ci.reshape(shape)
         else:                                   # DiagOp
             dr, di = mats[op.idx][0], mats[op.idx][1]
@@ -353,6 +359,18 @@ def _rows(x: torch.Tensor, lanes: int, K: int) -> torch.Tensor:
     return x
 
 
+def _lane_stacks(xr: torch.Tensor, xi: torch.Tensor, shape: tuple):
+    """(L, O, K, I) views of both planes whose lanes are each a contiguous
+    (O, K, I) stack sharing one lane stride — the layout the mid kernel
+    reads (copies only when the current layout is not, e.g. right after a
+    TransposeOp)."""
+    xr, xi = xr.reshape(shape), xi.reshape(shape)
+    if (not (xr[0].is_contiguous() and xi[0].is_contiguous())
+            or xr.stride(0) != xi.stride(0)):
+        xr, xi = xr.contiguous(), xi.contiguous()
+    return xr, xi
+
+
 def execute_schedule_batched(sched: StageSchedule, planes: torch.Tensor,
                              mats, *, use_kernel: bool) -> torch.Tensor:
     """Run a compiled schedule over an (L, 2, 2^nv) f32 plane stack.
@@ -361,8 +379,10 @@ def execute_schedule_batched(sched: StageSchedule, planes: torch.Tensor,
     gates, ``(L, 2, K)`` of its diagonal for diagonal gates; lane ``l``'s
     unitaries apply to lane ``l``'s planes.  Operands may be stride-0
     views over the lane axis.  ``use_kernel`` selects the
-    ``gemm_planes_batch`` kernel for every ``GemmOp`` over plain torch
-    products.
+    ``gemm_planes_batch`` kernel for every ``GemmOp`` and
+    ``gemm_planes_mid_batch`` for every ``MidGemmOp`` over plain torch
+    products: each row's result is then independent of the rows beside
+    it, bit for bit.
 
     The result is written back into ``planes`` (the buffer the JAX
     package donates) and returned.
@@ -386,19 +406,24 @@ def execute_schedule_batched(sched: StageSchedule, planes: torch.Tensor,
                 from ..kernels.gate_apply import gemm_planes_batch
                 cr, ci = gemm_planes_batch(a2r, a2i, br, bi)
             else:
-                cr = a2r @ br - a2i @ bi                      # lane-batched
-                ci = a2r @ bi + a2i @ br
+                with full_f32_products(a2r.device):
+                    cr = a2r @ br - a2i @ bi                  # lane-batched
+                    ci = a2r @ bi + a2i @ br
             ar, ai = cr.reshape(shape), ci.reshape(shape)
         elif isinstance(op, MidGemmOp):
             K = 1 << op.k
             br, bi = _op_mat_batch(mats[op.idx], op.bmap)
-            a3r = ar.reshape(lanes, op.outer, K, op.inner)
-            a3i = ai.reshape(lanes, op.outer, K, op.inner)
-
-            def e(b, a):
-                return torch.einsum("ljk,loki->loji", b, a)
-            cr = e(br, a3r) - e(bi, a3i)
-            ci = e(br, a3i) + e(bi, a3r)
+            if use_kernel:
+                from ..kernels.gate_apply import gemm_planes_mid_batch
+                a3r, a3i = _lane_stacks(ar, ai,
+                                        (lanes, op.outer, K, op.inner))
+                cr, ci = gemm_planes_mid_batch(a3r, a3i, br, bi)
+            else:
+                from ..kernels.ref import gemm_planes_mid_batch_ref
+                a3r = ar.reshape(lanes, op.outer, K, op.inner)
+                a3i = ai.reshape(lanes, op.outer, K, op.inner)
+                with full_f32_products(a3r.device):
+                    cr, ci = gemm_planes_mid_batch_ref(a3r, a3i, br, bi)
             ar, ai = cr.reshape(shape), ci.reshape(shape)
         else:                                   # DiagOp
             dr, di = mats[op.idx][:, 0], mats[op.idx][:, 1]   # (L, K)

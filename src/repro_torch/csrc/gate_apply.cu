@@ -77,16 +77,25 @@
 // replace gemm_planes_mid (_gemm_mid_kernel, pl.pallas_call at :153): the
 // batched left contraction over an (O, K, I) stack, C[o] = U A[o], with U
 // untransposed — a gate whose qubit axes sit together but not minor-most,
-// applied with no transpose.  Bound by bytes like the GEMM above (each
-// amplitude in and out once, 4K FMAs: at (1, 32, 2^17) 0.020 ms of bytes
-// against 0.016 ms of FMAs), and for the same reason the load and the FMAs
-// must overlap.  The ring body does for B7 what gemm_planes_ring_kernel does
-// for B1/B6, with the same cp.async helpers and ring_walk's stage rotation:
-//   * persistent blocks walk work units (o, a tile of TI inner columns) in
-//     order; a unit's slab is K rows of TI contiguous floats of each plane,
-//     copied as 16-byte chunks (4-byte copies where I or the planes are not
-//     16-byte aligned; columns past a ragged I are never copied or stored)
-//     while the previous slab's FMAs run;
+// applied with no transpose.  Their lane-batched form, C[l, o] = U[l]
+// A[l, o] over (L, O, K, I) with one U a lane, is the wave path's
+// MidGemmOp (repro runs that product as an XLA einsum, with no Pallas
+// kernel); gemm_planes_mid is its call with one lane.  Bound by bytes like
+// the GEMM above (each amplitude in and out once, 4K FMAs: at (1, 32, 2^17)
+// 0.020 ms of bytes against 0.016 ms of FMAs), and for the same reason the
+// load and the FMAs must overlap.  The ring body does for B7 what
+// gemm_planes_ring_kernel does for B1/B6, with the same cp.async helpers
+// and ring_walk's stage rotation:
+//   * persistent blocks, spread over the lanes (blockIdx.y = lane; each
+//     loads its lane's U, from any strides, lane stride 0 included), walk
+//     work units in order; a unit's slab is K rows of TI columns of each
+//     plane, copied as 16-byte chunks (4-byte copies where I or the planes
+//     are not 16-byte aligned; columns past a ragged edge are never copied
+//     or stored) while the previous slab's FMAs run.  A unit is (o, a tile
+//     of TI inner columns) where I fills a slab; where I is narrower (the
+//     wave path's (32, 16384, 8) op), it is TI / I neighbouring o's, their
+//     I columns side by side, so no thread idles and the copy stays whole
+//     16-byte chunks (I % 4 == 0 keeps a chunk inside one o);
 //   * a thread owns kMidCols neighbouring columns of the slab (one 8-byte
 //     load of each plane a row; neighbouring threads on neighbouring
 //     columns, so no bank conflicts) and kMidRows of their output rows, so
@@ -94,13 +103,20 @@
 //     2 kMidRows kMidCols registers; U^T (2 K^2 floats) is read from shared
 //     memory as broadcast float4s, four output rows a load, and each output
 //     row is stored straight to global memory, coalesced (8-byte stores
-//     where I is even).  The sum over k runs in order with the previous
-//     body's four FMAs a term (GATE_ATOL, 1e-4, is its tolerance).
+//     where I is even).  The sums follow the plain version's order (four
+//     in-order f32 FMA sums over k, then rr - ii and ri + ir), so the
+//     kernel holds B1's rtol 1e-5, atol 1e-6 against it.
+// The variant, the slab and a thread's columns follow from (K, I) alone,
+// never from L or O, and an element's sum is one thread's in-order FMAs:
+// lane l of an L-lane call is bit for bit the one-lane call on lane l's
+// operands, for every L.  That is what lets SimService promise that merged
+// lanes equal their solo runs, and no cuBLAS call (nor its TF32 flags) is
+// left on the wave path.
 // Measured on one H100 (PERF.md §6): at (1, 32, 2^17) the FMAs alone take
 // 0.033 ms and the stream alone 0.029; together 0.037, under torch.matmul.
-// At K >= 64 one thread owns one inner column (o, i) and reads its K values
-// from HBM directly, the output rows in passes of 32; it is off the default
-// fusion width (max_fused_qubits 5) and untimed.
+// At K >= 64 one thread owns one inner column (o, i) of its lane and reads
+// its K values from HBM directly, the output rows in passes of 16; it is
+// off the default fusion width (max_fused_qubits 5) and untimed.
 //
 // diag_apply_kernel replaces diag_apply (_diag_kernel, pl.pallas_call at
 // :186): (R, K) planes times a complex (1, K) diagonal, elementwise.  It
@@ -574,7 +590,7 @@ cudaError_t launch_tc(const float* ar, const float* ai, const float* br,
   return cudaGetLastError();
 }
 
-// -- gemm_planes_mid at K <= 32: slabs of A streamed through a ring --------
+// -- gemm_planes_mid(_batch) at K <= 32: slabs of A streamed through a ring -
 
 // Output rows a thread at most (a column's K rows go to K / kMidRows
 // threads), neighbouring columns a thread, and slabs in the ring.  The
@@ -596,15 +612,34 @@ struct MidShape {
   static constexpr int TI = TC * kMidCols;        // columns a slab
 };
 
+// A slab's TI columns: TI neighbouring inner columns of one o where I is
+// at least a slab wide (a unit is (o, inner tile)); where I is narrower
+// (and a multiple of a thread's columns), the I columns of each of TI / I
+// neighbouring o's side by side (a unit is that run of o's).  Like every
+// choice that touches an element's sum, it depends on (K, I) alone.
+template <int K>
+__host__ __device__ constexpr bool mid_narrow(long long inner) {
+  return inner < MidShape<K>::TI && inner % kMidCols == 0;
+}
+
+// work units of one lane
+template <int K>
+__host__ __device__ constexpr long long mid_units(long long outer,
+                                                  long long inner) {
+  return mid_narrow<K>(inner)
+      ? (outer + MidShape<K>::TI / inner - 1) / (MidShape<K>::TI / inner)
+      : outer * ((inner + MidShape<K>::TI - 1) / MidShape<K>::TI);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
-                            const float* __restrict__ ai,
+                            const float* __restrict__ ai, long long a_lane,
                             const float* __restrict__ ur,
-                            const float* __restrict__ ui, long long u_row,
-                            long long u_col, float* __restrict__ cr,
-                            float* __restrict__ ci, long long outer,
-                            long long inner, int vec4) {
+                            const float* __restrict__ ui, long long u_lane,
+                            long long u_row, long long u_col,
+                            float* __restrict__ cr, float* __restrict__ ci,
+                            long long outer, long long inner, int vec4) {
   constexpr int RT = MidShape<K>::RT, TC = MidShape<K>::TC;
   constexpr int TI = MidShape<K>::TI, CT = kMidCols;
   constexpr int S = kMidStages, SLAB = K * TI;
@@ -612,10 +647,18 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
                 (CT == 1 || CT == 2) && S >= 2,
                 "a warp shares its output rows; whole float4 chunks");
   extern __shared__ __align__(16) float smem[];
-  float* sur = smem;  // sur[k * K + j] = Re U[j][k]
+  float* sur = smem;  // sur[k * K + j] = Re U[j][k] of this block's lane
   float* sui = sur + K * K;
   float* ring = sui + K * K;  // stage s: the slab's Ar, then its Ai, at 2 SLAB s
 
+  // blockIdx.y is the lane: its (O, K, I) stacks of A and C, and its U
+  const long long lane = blockIdx.y;
+  ar += lane * a_lane;
+  ai += lane * a_lane;
+  cr += lane * outer * K * inner;
+  ci += lane * outer * K * inner;
+  ur += lane * u_lane;
+  ui += lane * u_lane;
   const int tid = threadIdx.x;
   for (int e = tid; e < K * K; e += kThreads) {
     const int k = e / K, j = e % K;
@@ -626,16 +669,29 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
   const int c = (tid % TC) * CT;   // the first slab column this thread owns
   const int j0 = (tid / TC) * RT;  // and its first output row
 
-  // unit u = (o, inner tile): K rows of TI contiguous columns of each plane
+  const bool narrow = mid_narrow<K>(inner);
+  const int span = narrow ? (int)inner : TI;  // a slab's columns of one o
   const long long tiles = (inner + TI - 1) / TI;
-  const long long units = outer * tiles;
+  const long long units = mid_units<K>(outer, inner);
   const int mine = blockIdx.x < units
       ? (int)((units - 1 - blockIdx.x) / gridDim.x + 1) : 0;
   auto unit = [&](int i, long long& base, int& cnt) {
     const long long u = (long long)blockIdx.x + (long long)i * gridDim.x;
-    const long long o = u / tiles, i0 = (u - o * tiles) * TI;
-    base = o * K * inner + i0;  // element (o, 0, i0) of a plane
-    cnt = (int)(inner - i0 < TI ? inner - i0 : TI);
+    if (narrow) {
+      const long long o0 = u * (TI / span);
+      const long long n = outer - o0 < TI / span ? outer - o0 : TI / span;
+      base = o0 * K * inner;  // element (o0, 0, 0) of a plane
+      cnt = (int)(n * inner);
+    } else {
+      const long long o = u / tiles, i0 = (u - o * tiles) * TI;
+      base = o * K * inner + i0;  // element (o, 0, i0) of a plane
+      cnt = (int)(inner - i0 < TI ? inner - i0 : TI);
+    }
+  };
+  // slab column col's element in row 0, from base: each o's K rows of I
+  // follow the previous o's
+  auto col_at = [&](int col) -> long long {
+    return narrow ? (long long)(col / span) * (K - 1) * inner + col : col;
   };
 
   auto copy_slab = [&](int i) {
@@ -645,11 +701,12 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
     float* dr = ring + (i % S) * 2 * SLAB;
     float* di = dr + SLAB;
     if (vec4) {
+      // I % 4 == 0: a chunk never crosses from one o into the next
       for (int e = tid; e < SLAB / 4; e += kThreads) {
         const int k = e / (TI / 4), col = 4 * (e % (TI / 4));
         if (col < cnt) {
           const int bytes = 4 * (cnt - col < 4 ? cnt - col : 4);
-          const long long g = base + k * inner + col;
+          const long long g = base + col_at(col) + k * inner;
           cp_async16(dr + k * TI + col, ar + g, bytes);
           cp_async16(di + k * TI + col, ai + g, bytes);
         }
@@ -658,7 +715,7 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
       for (int e = tid; e < SLAB; e += kThreads) {
         const int k = e / TI, col = e % TI;
         if (col < cnt) {
-          const long long g = base + k * inner + col;
+          const long long g = base + col_at(col) + k * inner;
           cp_async4(dr + k * TI + col, ar + g);
           cp_async4(di + k * TI + col, ai + g);
         }
@@ -673,19 +730,22 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
     if (c >= cnt) return;
     const float* xr = ring + (i % S) * 2 * SLAB + c;
     const float* xi = xr + SLAB;
-    float accr[CT][RT], acci[CT][RT];
+    // the plain version's f32 FMAs in its order: four sums over
+    // k = 0 .. K - 1, then rr - ii and ri + ir
+    float rr[CT][RT], ii[CT][RT], ri[CT][RT], ir[CT][RT];
 #pragma unroll
     for (int h = 0; h < CT; ++h)
 #pragma unroll
-      for (int j = 0; j < RT; ++j) accr[h][j] = acci[h][j] = 0.f;
+      for (int j = 0; j < RT; ++j)
+        rr[h][j] = ii[h][j] = ri[h][j] = ir[h][j] = 0.f;
     auto step = [&](const float (&x_r)[CT], const float (&x_i)[CT],
                     float u_r, float u_i, int j) {
 #pragma unroll
       for (int h = 0; h < CT; ++h) {
-        accr[h][j] = fmaf(u_r, x_r[h], accr[h][j]);
-        accr[h][j] = fmaf(-u_i, x_i[h], accr[h][j]);
-        acci[h][j] = fmaf(u_r, x_i[h], acci[h][j]);
-        acci[h][j] = fmaf(u_i, x_r[h], acci[h][j]);
+        rr[h][j] = fmaf(u_r, x_r[h], rr[h][j]);
+        ii[h][j] = fmaf(u_i, x_i[h], ii[h][j]);
+        ri[h][j] = fmaf(u_r, x_i[h], ri[h][j]);
+        ir[h][j] = fmaf(u_i, x_r[h], ir[h][j]);
       }
     };
 #pragma unroll 4
@@ -718,10 +778,19 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
           step(x_r, x_i, sur[k * K + j0 + j], sui[k * K + j0 + j], j);
       }
     }
+    float accr[CT][RT], acci[CT][RT];
+#pragma unroll
+    for (int h = 0; h < CT; ++h)
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        accr[h][j] = rr[h][j] - ii[h][j];
+        acci[h][j] = ri[h][j] + ir[h][j];
+      }
     // row j0 + j of the output slab, straight from registers (coalesced;
-    // two columns as one 8-byte store where I keeps them aligned)
-    float* pr = cr + base + (long long)j0 * inner + c;
-    float* pi = ci + base + (long long)j0 * inner + c;
+    // two columns as one 8-byte store where I keeps them aligned: c is
+    // even and, for a narrow I, both columns lie in one o)
+    float* pr = cr + base + col_at(c) + (long long)j0 * inner;
+    float* pi = ci + base + col_at(c) + (long long)j0 * inner;
     if (CT == 2 && inner % 2 == 0 && c + 2 <= cnt) {
 #pragma unroll
       for (int j = 0; j < RT; ++j) {
@@ -745,10 +814,11 @@ gemm_planes_mid_ring_kernel(const float* __restrict__ ar,
 
 template <int K>
 cudaError_t launch_mid_ring(const float* ar, const float* ai,
-                            const float* ur, const float* ui, long long u_row,
-                            long long u_col, float* cr, float* ci,
-                            long long outer, long long inner, int vec4,
-                            cudaStream_t stream) {
+                            long long a_lane, const float* ur,
+                            const float* ui, long long u_lane,
+                            long long u_row, long long u_col, float* cr,
+                            float* ci, long long lanes, long long outer,
+                            long long inner, int vec4, cudaStream_t stream) {
   auto kernel = gemm_planes_mid_ring_kernel<K>;
   constexpr int TI = MidShape<K>::TI;
   const int smem = (2 * K * K + 2 * kMidStages * K * TI) * (int)sizeof(float);
@@ -763,32 +833,43 @@ cudaError_t launch_mid_ring(const float* ar, const float* ai,
                                                         kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long units = outer * ((inner + TI - 1) / TI);
-  long long grid = (long long)sms * per_sm;
-  if (grid > units) grid = units;
-  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
-      ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4);
+  const long long lane_units = mid_units<K>(outer, inner);
+  // the resident blocks shared out over the lanes (blockIdx.y)
+  long long grid = (long long)sms * per_sm / lanes;
+  if (grid < 1) grid = 1;
+  if (grid > lane_units) grid = lane_units;
+  kernel<<<dim3((unsigned)grid, (unsigned)lanes), kThreads, smem, stream>>>(
+      ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, outer, inner,
+      vec4);
   return cudaGetLastError();
 }
 
-// -- gemm_planes_mid at K >= 64: one inner column a thread -------------------
+// -- gemm_planes_mid(_batch) at K >= 64: one inner column a thread ----------
 
 constexpr int kMidThreads = 256;
 
 template <int K>
 __global__ void __launch_bounds__(kMidThreads)
 gemm_planes_mid_kernel(const float* __restrict__ ar,
-                       const float* __restrict__ ai,
+                       const float* __restrict__ ai, long long a_lane,
                        const float* __restrict__ ur,
-                       const float* __restrict__ ui, long long u_row,
-                       long long u_col, float* __restrict__ cr,
-                       float* __restrict__ ci, long long outer,
-                       long long inner) {
-  constexpr int JC = 32;  // output rows a pass
+                       const float* __restrict__ ui, long long u_lane,
+                       long long u_row, long long u_col,
+                       float* __restrict__ cr, float* __restrict__ ci,
+                       long long outer, long long inner) {
+  constexpr int JC = 16;  // output rows a pass
   static_assert(K >= 64, "K <= 32 runs gemm_planes_mid_ring_kernel");
   extern __shared__ __align__(16) float smem[];
-  float* sur = smem;       // sur[k * K + j] = Re U[j][k]
+  float* sur = smem;       // sur[k * K + j] = Re U[j][k] of this block's lane
   float* sui = smem + K * K;
+  // blockIdx.y is the lane, as in the ring body
+  const long long lane = blockIdx.y;
+  ar += lane * a_lane;
+  ai += lane * a_lane;
+  cr += lane * outer * K * inner;
+  ci += lane * outer * K * inner;
+  ur += lane * u_lane;
+  ui += lane * u_lane;
   for (int e = threadIdx.x; e < K * K; e += kMidThreads) {
     const int k = e / K, j = e % K;
     sur[e] = ur[j * u_row + k * u_col];
@@ -802,9 +883,10 @@ gemm_planes_mid_kernel(const float* __restrict__ ar,
     const long long o = c / inner;
     const long long base = o * K * inner + (c - o * inner);
     for (int j0 = 0; j0 < K; j0 += JC) {
-      float accr[JC], acci[JC];
+      // four sums over k in order, then rr - ii and ri + ir, as the ring
+      float rr[JC], ii[JC], ri[JC], ir[JC];
 #pragma unroll
-      for (int j = 0; j < JC; ++j) accr[j] = acci[j] = 0.f;
+      for (int j = 0; j < JC; ++j) rr[j] = ii[j] = ri[j] = ir[j] = 0.f;
 #pragma unroll 8
       for (int k = 0; k < K; ++k) {
         const float xr = ar[base + k * inner];
@@ -819,26 +901,27 @@ gemm_planes_mid_kernel(const float* __restrict__ ar,
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
             const int j = 4 * q + h;
-            accr[j] = fmaf(us[h], xr, accr[j]);
-            accr[j] = fmaf(-vs[h], xi, accr[j]);
-            acci[j] = fmaf(us[h], xi, acci[j]);
-            acci[j] = fmaf(vs[h], xr, acci[j]);
+            rr[j] = fmaf(us[h], xr, rr[j]);
+            ii[j] = fmaf(vs[h], xi, ii[j]);
+            ri[j] = fmaf(us[h], xi, ri[j]);
+            ir[j] = fmaf(vs[h], xr, ir[j]);
           }
         }
       }
 #pragma unroll
       for (int j = 0; j < JC; ++j) {
-        cr[base + (long long)(j0 + j) * inner] = accr[j];
-        ci[base + (long long)(j0 + j) * inner] = acci[j];
+        cr[base + (long long)(j0 + j) * inner] = rr[j] - ii[j];
+        ci[base + (long long)(j0 + j) * inner] = ri[j] + ir[j];
       }
     }
   }
 }
 
 template <int K>
-cudaError_t launch_mid(const float* ar, const float* ai, const float* ur,
-                       const float* ui, long long u_row, long long u_col,
-                       float* cr, float* ci, long long outer,
+cudaError_t launch_mid(const float* ar, const float* ai, long long a_lane,
+                       const float* ur, const float* ui, long long u_lane,
+                       long long u_row, long long u_col, float* cr,
+                       float* ci, long long lanes, long long outer,
                        long long inner, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)K * K * sizeof(float);
   if (smem > 48 * 1024) {
@@ -849,10 +932,12 @@ cudaError_t launch_mid(const float* ar, const float* ai, const float* ur,
   }
   const long long cols = outer * inner;
   const long long blocks = (cols + kMidThreads - 1) / kMidThreads;
-  const long long cap = 4096;
-  gemm_planes_mid_kernel<K><<<(unsigned)(blocks < cap ? blocks : cap),
+  long long cap = 4096 / lanes;  // blocks a lane
+  if (cap < 1) cap = 1;
+  gemm_planes_mid_kernel<K><<<dim3((unsigned)(blocks < cap ? blocks : cap),
+                                   (unsigned)lanes),
                               kMidThreads, smem, stream>>>(
-      ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner);
+      ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, outer, inner);
   return cudaGetLastError();
 }
 
@@ -968,23 +1053,32 @@ int gemm_planes_f32(const float* ar, const float* ai, const float* br,
                        k, vec4, s);
 }
 
-// B7.  A is a contiguous (O, K, I) stack; U (K, K) any strides; C is
-// written contiguous (O, K, I).  vec4 = both A planes 16-byte aligned and
-// I % 4 == 0 (every row of every slab is then 16-byte aligned).
-int gemm_planes_mid_f32(const float* ar, const float* ai, const float* ur,
-                        const float* ui, long long u_row, long long u_col,
-                        float* cr, float* ci, long long outer, int k,
-                        long long inner, int vec4, void* stream) {
-  if (outer <= 0 || inner <= 0) return (int)cudaErrorInvalidValue;
+// B7 and its lane-batched form (gemm_planes_mid is the call with one lane).
+// A is an (L, O, K, I) stack whose lanes are each a contiguous (O, K, I)
+// stack, the two planes sharing the lane stride a_lane; U (L, K, K) any
+// strides (u_lane 0: one U for every lane); C is written contiguous
+// (L, O, K, I).  vec4 = both A planes 16-byte aligned, I % 4 == 0 and
+// a_lane % 4 == 0 (every row of every slab is then 16-byte aligned).  The
+// variant and the tiling follow from (K, I) alone, so lane l of an L-lane
+// call is bit for bit the one-lane call on lane l's operands.
+int gemm_planes_mid_batch_f32(const float* ar, const float* ai,
+                              long long a_lane, const float* ur,
+                              const float* ui, long long u_lane,
+                              long long u_row, long long u_col, float* cr,
+                              float* ci, long long lanes, long long outer,
+                              int k, long long inner, int vec4,
+                              void* stream) {
+  if (lanes <= 0 || lanes > 65535 || outer <= 0 || inner <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 2: return (int)launch_mid_ring<2>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
-    case 4: return (int)launch_mid_ring<4>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
-    case 8: return (int)launch_mid_ring<8>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
-    case 16: return (int)launch_mid_ring<16>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
-    case 32: return (int)launch_mid_ring<32>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, vec4, s);
-    case 64: return (int)launch_mid<64>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
-    case 128: return (int)launch_mid<128>(ar, ai, ur, ui, u_row, u_col, cr, ci, outer, inner, s);
+    case 2: return (int)launch_mid_ring<2>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, vec4, s);
+    case 4: return (int)launch_mid_ring<4>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, vec4, s);
+    case 8: return (int)launch_mid_ring<8>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, vec4, s);
+    case 16: return (int)launch_mid_ring<16>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, vec4, s);
+    case 32: return (int)launch_mid_ring<32>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, vec4, s);
+    case 64: return (int)launch_mid<64>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, s);
+    case 128: return (int)launch_mid<128>(ar, ai, a_lane, ur, ui, u_lane, u_row, u_col, cr, ci, lanes, outer, inner, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,6 +10,11 @@ The ports of the TPU kernels of ``repro/kernels/gate_apply.py``:
   A: the single-group schedule's and ``ops.apply_fused_gate``'s GEMM;
 * ``gemm_planes_mid`` — ``C[o] = U A[o]`` over an (O, K, I) stack, with U
   untransposed: a gate whose axes sit together but not minor-most;
+* ``gemm_planes_mid_batch`` — its lane-batched form, ``C[l, o] = U[l]
+  A[l, o]`` over (L, O, K, I) with per-lane U planes (L, K, K): the wave
+  path's ``MidGemmOp`` (no Pallas kernel: ``repro`` runs it as an XLA
+  einsum).  Lane l of an L-lane call is bit for bit the one-lane call on
+  lane l's operands, for every L;
 * ``diag_apply`` — (R, K) planes times a complex (1, K) diagonal.
 
 On a CUDA tensor each launches its hand-written Hopper kernel in
@@ -27,15 +32,18 @@ import ctypes
 import torch
 
 from . import build
-from .ref import (diag_apply_ref, gemm_planes_batch_ref, gemm_planes_mid_ref,
+from .ref import (diag_apply_ref, gemm_planes_batch_ref,
+                  gemm_planes_mid_batch_ref, gemm_planes_mid_ref,
                   gemm_planes_ref)
 
 __all__ = ["gemm_planes", "gemm_planes_batch", "gemm_planes_mid",
-           "diag_apply", "launch_counts", "reset_launch_counts"]
+           "gemm_planes_mid_batch", "diag_apply", "launch_counts",
+           "reset_launch_counts"]
 
 #: kernel name -> launches since the last reset
 launch_counts: dict[str, int] = {"gemm_planes_batch": 0, "gemm_planes": 0,
-                                 "gemm_planes_mid": 0, "diag_apply": 0}
+                                 "gemm_planes_mid": 0,
+                                 "gemm_planes_mid_batch": 0, "diag_apply": 0}
 
 _MAX_K = 128
 _fns = None    # C entry points by kernel name, bound at first CUDA call
@@ -50,15 +58,18 @@ def _kernels() -> dict:
     global _fns
     if _fns is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # B7 is the lane-batched entry's call with one lane
+        mid = ("gemm_planes_mid_batch_f32",
+               [p, p, i64, p, p, i64, i64, i64, p, p, i64, i64, i32, i64,
+                i32, p])
         _fns = build.bind("gate_apply", {
             "gemm_planes_batch": ("gemm_planes_batch_f32",
                                   [p, p, i64, p, p, i64, i64, i64, p, p,
                                    i64, i64, i32, i32, p]),
             "gemm_planes": ("gemm_planes_f32",
                             [p, p, p, p, i64, i64, p, p, i64, i32, i32, p]),
-            "gemm_planes_mid": ("gemm_planes_mid_f32",
-                                [p, p, p, p, i64, i64, p, p, i64, i32, i64,
-                                 i32, p]),
+            "gemm_planes_mid": mid,
+            "gemm_planes_mid_batch": mid,
             "diag_apply": ("diag_apply_f32",
                            [p, p, p, p, p, p, i64, i64, i32, p]),
         }, "repro_cuda_error_string")
@@ -172,7 +183,8 @@ def gemm_planes_mid(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
     """(O, K, I) batched left contraction ``C[o] = U·A[o]`` on re/im
     planes; ``br``/``bi`` are U's planes (NOT transposed; any strides).
     On CUDA, A's planes must be contiguous (O, K, I); C comes back
-    contiguous."""
+    contiguous.  The kernel is :func:`gemm_planes_mid_batch`'s with one
+    lane."""
     O, K, I = ar.shape
     if (tuple(ai.shape) != (O, K, I) or tuple(br.shape) != (K, K)
             or tuple(bi.shape) != (K, K)):
@@ -182,19 +194,59 @@ def gemm_planes_mid(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor,
     dev = _device("gemm_planes_mid", (ar, ai, br, bi))
     if dev is None:
         return gemm_planes_mid_ref(ar, ai, br, bi)
-    _check_k("gemm_planes_mid", K)
     if not (ar.is_contiguous() and ai.is_contiguous()):
         raise ValueError("gemm_planes_mid: A planes must be contiguous "
                          f"(strides {ar.stride()}, {ai.stride()})")
+    cr, ci = _mid("gemm_planes_mid", dev, ar[None], ai[None], br[None],
+                  bi[None])
+    return cr[0], ci[0]
+
+
+def gemm_planes_mid_batch(ar: torch.Tensor, ai: torch.Tensor,
+                          br: torch.Tensor, bi: torch.Tensor):
+    """(L, O, K, I) lane-batched left contraction ``C[l, o] = U[l]·A[l, o]``
+    on re/im planes; ``br``/``bi`` are the per-lane U planes (L, K, K),
+    NOT transposed, with any strides, lane stride 0 included (one U for
+    every lane).  On CUDA, each lane of A's planes must be a contiguous
+    (O, K, I) stack and the two planes must share their lane stride; C
+    comes back contiguous.  Lane l of the result is bit for bit the
+    one-lane call on lane l's operands, whatever L."""
+    L, O, K, I = ar.shape
+    if (tuple(ai.shape) != (L, O, K, I) or tuple(br.shape) != (L, K, K)
+            or tuple(bi.shape) != (L, K, K)):
+        raise ValueError(f"gemm_planes_mid_batch: shapes "
+                         f"{tuple(ar.shape)}, {tuple(ai.shape)}, "
+                         f"{tuple(br.shape)}, {tuple(bi.shape)} do not "
+                         "form (L,K,K) x (L,O,K,I)")
+    dev = _device("gemm_planes_mid_batch", (ar, ai, br, bi))
+    if dev is None:
+        return gemm_planes_mid_batch_ref(ar, ai, br, bi)
+    for t in (ar, ai):
+        if L and not t[0].is_contiguous():
+            raise ValueError("gemm_planes_mid_batch: each lane of A must "
+                             f"be a contiguous stack (strides {t.stride()})")
+    if L > 1 and ar.stride(0) != ai.stride(0):
+        raise ValueError("gemm_planes_mid_batch: the two planes of A must "
+                         "share their lane stride")
+    return _mid("gemm_planes_mid_batch", dev, ar, ai, br, bi)
+
+
+def _mid(name: str, dev: torch.device, ar, ai, br, bi):
+    """Launch the (L, O, K, I) left contraction on checked operands."""
+    L, O, K, I = ar.shape
+    _check_k(name, K)
+    if not 1 <= L <= 65535:
+        raise ValueError(f"{name}: {L} lanes (the kernel takes 1 to 65535)")
     if br.stride() != bi.stride():
-        raise ValueError("gemm_planes_mid: the two planes of U must share "
-                         "their strides")
-    cr = torch.empty((O, K, I), dtype=torch.float32, device=dev)
+        raise ValueError(f"{name}: the two planes of U must share their "
+                         "strides")
+    cr = torch.empty((L, O, K, I), dtype=torch.float32, device=dev)
     ci = torch.empty_like(cr)
-    _launch("gemm_planes_mid", dev, ar.data_ptr(), ai.data_ptr(),
-            br.data_ptr(), bi.data_ptr(), br.stride(0), br.stride(1),
-            cr.data_ptr(), ci.data_ptr(), O, K, I,
-            int(_aligned(ar, ai) and I % 4 == 0))
+    a_lane = ar.stride(0) if L > 1 else 0
+    vec4 = int(_aligned(ar, ai) and I % 4 == 0 and a_lane % 4 == 0)
+    _launch(name, dev, ar.data_ptr(), ai.data_ptr(), a_lane, br.data_ptr(),
+            bi.data_ptr(), br.stride(0) if L > 1 else 0, br.stride(1),
+            br.stride(2), cr.data_ptr(), ci.data_ptr(), L, O, K, I, vec4)
     return cr, ci
 
 

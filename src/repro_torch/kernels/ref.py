@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gemm_planes_ref", "gemm_planes_batch_ref", "gemm_planes_mid_ref",
+           "gemm_planes_mid_batch_ref",
            "diag_apply_ref", "quantize_tiles_ref", "dequantize_tiles_ref",
            "pack_codes_tiles_ref", "unpack_codes_tiles_ref",
            "pack_bitmap_tiles_ref", "unpack_bitmap_tiles_ref",
@@ -66,6 +67,18 @@ def gemm_planes_mid_ref(ar: torch.Tensor, ai: torch.Tensor,
     ``br``/``bi`` are U's planes, not transposed."""
     cr = br @ ar - bi @ ai
     ci = br @ ai + bi @ ar
+    return cr.to(torch.float32), ci.to(torch.float32)
+
+
+def gemm_planes_mid_batch_ref(ar: torch.Tensor, ai: torch.Tensor,
+                              br: torch.Tensor, bi: torch.Tensor):
+    """(L, O, K, I) lane-batched left contraction ``C[l, o] = U[l]·A[l, o]``
+    on re/im planes with per-lane U planes (L, K, K), not transposed: the
+    einsum of ``repro``'s batched ``MidGemmOp``."""
+    def e(b, a):
+        return torch.einsum("ljk,loki->loji", b, a)
+    cr = e(br, ar) - e(bi, ai)
+    ci = e(br, ai) + e(bi, ar)
     return cr.to(torch.float32), ci.to(torch.float32)
 
 

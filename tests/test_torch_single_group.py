@@ -107,8 +107,9 @@ def test_execute_schedule_matches_repro_on_random_plans(jx, seed,
 def test_mid_gemm_takes_the_kernel_branch_when_inner_is_wide(jx, nv, vq,
                                                              use_kernel):
     """A dense gate on a contiguous axis block that is not minor-most
-    compiles to a MidGemmOp; with inner >= 128 it runs gemm_planes_mid
-    (its plain version here), below that an einsum."""
+    compiles to a MidGemmOp; with use_kernel it runs gemm_planes_mid (its
+    plain version here) at every inner width, narrow ones included, where
+    the JAX package takes its Pallas kernel only for inner >= 128."""
     rng = np.random.default_rng(nv + sum(vq))
     plan = ((vq, False),)
     gates = [_unitary(rng, 2 ** len(vq))]
