@@ -58,13 +58,21 @@ Phases, in order (any failure exits non-zero and prints no result):
                   up (bf16 q: K/V and P rounded to bf16, held to 2^-8
                   max|v| + one bf16 step); B11's dequantize bit for bit
                   against its previous form over all codes x signs x
-                  scales (kv_dequant_rows_f32); timed at (BH, S, hd) = (128,
+                  scales (kv_dequant_rows_f32); B10 at hd 256 and with a
+                  sliding window (below, at and across a block, a window
+                  of 1, gemma3's 1,024 at its width), B11 at hd 256 (ring,
+                  pos past T, all codes); timed at (BH, S, hd) = (128,
                   2048, 128) causal f32 and in bf16 at the serve shape (B
                   8, S 2,048, Hq 32, G 8; library:
                   F.scaled_dot_product_attention, f32 with TF32 off, bf16
-                  on expanded kv heads), B11 at the serve
+                  on expanded kv heads) and at gemma3's (Hq 16, G 8, hd
+                  256; global, and local with the window as an explicit
+                  mask for the library), B11 at the serve
                   shape with an f32 and a bf16 q beside its bytes bound
-                  and its MUFU.EX2 bound (sfu_bound_ms).
+                  and its MUFU.EX2 bound (sfu_bound_ms), and with pos a
+                  device tensor at live 2,050 of 4,096 (hd 128 and 256)
+                  beside the grid a host-int pos sized (host_grid_ms, bit
+                  for bit the same output), and on a gemma3 ring.
 3. ops          — the kernels/ops.py entry points on one group plane of
                   2^22 amplitudes: quantize_block -> pack_codes ->
                   unpack_codes -> dequantize_block and pack_sign_bitmap ->
@@ -143,18 +151,33 @@ Phases, in order (any failure exits non-zero and prints no result):
                   exit 0, the batched-run line and the average printed.
 13. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
                   drawn on cuda:0 from --seed): make_prefill_step on 8
-                  random prompts of 2,048 tokens with max_len 4,096,
-                  compress_prefill_cache, 32 greedy steps of
-                  make_compressed_decode_step; exactly 36 flash_attention
-                  and 1,152 kv_dequant_decode_attention launches; then the
-                  same prompts through the same functions with the two
+                  random prompts of 2,048 tokens with max_len 4,096 (36
+                  flash_attention launches), compress_prefill_cache, then
+                  from two copies of that cache 32 greedy steps of
+                  make_compressed_decode_step, eagerly and through
+                  serving.CapturedDecodeStep (one CUDA graph a step,
+                  captured before the timed steps): their logits bit for
+                  bit equal at every step, 1,152 kv_dequant_decode_attention
+                  launches each (the captured run's counted by the step:
+                  recorded at capture x replays; with --profile the
+                  trace's kvdq_partial_kernel count must equal it); then
+                  the same prompts through the same functions with the two
                   kernels' plain versions patched in (0 launches),
-                  teacher-forced on the first run's tokens: every step's
-                  logits within 2e-2 * max|logits|; compressed cache
-                  >= 1.7x smaller than bf16.  Prints prefill s, decode ms a
-                  step, tokens/s, peak device memory (and with --profile
-                  the device's busy and idle share).
-14. report      — one JSON line of kernels, the card's name and power
+                  teacher-forced on the captured run's tokens: every
+                  step's logits within 2e-2 * max|logits|; compressed
+                  cache >= 1.7x smaller than bf16.  Prints prefill s,
+                  decode ms a step and tokens/s of both runs, the weights'
+                  read time at 3.35 TB/s, peak device memory (and with
+                  --profile each run's device busy and idle share).
+14. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
+                  sliding-window ones of W 1,024 and 8 global, hd 256;
+                  11.8 B bf16 weights drawn after qwen3-4b's are freed),
+                  the same prompts: prefill longer than the window (48
+                  windowed / global B10 launches; the local layers' caches
+                  are rings of 1,024), 16 captured compressed decode steps
+                  (48 B11 a step), the plain teacher-forced run within
+                  2e-2, cache >= 1.7x smaller than bf16.
+15. report      — one JSON line of kernels, the card's name and power
                   limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
@@ -223,6 +246,8 @@ SERVE_ARCH = "qwen3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 8, 2048, 4096, 32
 SERVE_LOGIT_RTOL = 2e-2          # of max|logits|: tests/test_serving.py's
 KV_RATIO_MIN = 1.7
+GEMMA_ARCH, GEMMA_STEPS = "gemma3-12b", 16   # serve_gemma3: 16 captured steps
+GEMMA_WINDOW = 1024                          # its local layers' window
 
 
 def fail(msg: str) -> None:
@@ -938,9 +963,10 @@ def flash_case(BH: int, S: int, hd: int, causal: bool, seed: int) -> dict:
 
 
 def flash_gqa_cases(B: int, S: int, Hq: int, G: int, hd: int,
-                    seed: int) -> list[dict]:
+                    seed: int, window: int = 0) -> list[dict]:
     """The model layout (q (B,S,Hq,hd), k/v (B,S,G,hd) slices of one
-    projection, as attention_full hands them over) in f32 and in bf16."""
+    projection, as attention_full hands them over) in f32 and in bf16,
+    with a sliding ``window`` (0 none)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -953,10 +979,12 @@ def flash_gqa_cases(B: int, S: int, Hq: int, G: int, hd: int,
         q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:]
         shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd,
                  "dtype": str(dt).split(".")[-1], "causal": True}
+        if window:
+            shape["window"] = window
         bf = dt == torch.bfloat16
         out.append(attn_check(
-            "flash_attention", fa.flash_attention_gqa(q, k, v),
-            ref.flash_attention_gqa_ref(q, k, v), shape,
+            "flash_attention", fa.flash_attention_gqa(q, k, v, window=window),
+            ref.flash_attention_gqa_ref(q, k, v, True, window), shape,
             atol=bf16_atol(v) if bf else ATTN_ATOL,
             rtol=BF16_RTOL if bf else 0.0))
     return out
@@ -1205,12 +1233,23 @@ def flash_timed(BH: int, S: int, hd: int) -> dict:
     return out
 
 
-def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
-    """B10 at the serve shape in the model's GQA layout, causal bf16 (as
-    qwen3-4b's prefill calls it): kernel and plain version beside the bf16
-    tensor-core bound and the f32-FMA bound; the library yardstick is
-    F.scaled_dot_product_attention in bf16 on (B, Hq, S, hd) copies with
-    the kv heads expanded outside the timed call."""
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal pass over S tokens computes: S(S+1)/2,
+    or with a sliding window W the sum of min(i + 1, W)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int,
+                     window: int = 0) -> dict:
+    """B10 at a prefill's shape in the model's GQA layout, causal bf16 (as
+    qwen3-4b's and gemma3's prefills call it; ``window`` for gemma3's
+    local layers): kernel and plain version beside the bf16 tensor-core
+    bound and the f32-FMA bound over the unmasked pairs; the library
+    yardstick is F.scaled_dot_product_attention in bf16 on (B, Hq, S, hd)
+    copies with the kv heads expanded outside the timed call (with a
+    window, its mask an explicit (S, S) boolean made outside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1221,14 +1260,22 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
     q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + G], qkv[:, :, Hq + G:]
     shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd, "dtype": "bfloat16",
              "causal": True, "timed": True}
-    out = attn_check("flash_attention", fa.flash_attention_gqa(q, k, v),
-                     ref.flash_attention_gqa_ref(q, k, v), shape,
-                     atol=bf16_atol(v), rtol=BF16_RTOL)
+    if window:
+        shape["window"] = window
+    out = attn_check("flash_attention",
+                     fa.flash_attention_gqa(q, k, v, window=window),
+                     ref.flash_attention_gqa_ref(q, k, v, True, window),
+                     shape, atol=bf16_atol(v), rtol=BF16_RTOL)
     nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * G * hd)
-    flops = 4 * B * Hq * hd * (S * (S + 1) // 2)
+    flops = 4 * B * Hq * hd * window_pairs(S, window)
     inputs = [(x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:])
               for (x,) in cold_copies((qkv,), (0,))]
     rep = Hq // G
+    mask = None
+    if window:
+        i = torch.arange(S, device="cuda:0")
+        d = i[:, None] - i[None, :]
+        mask = (d >= 0) & (d < window)
 
     def heads_first(a, c, d):
         return (a.transpose(1, 2).contiguous(),
@@ -1237,11 +1284,13 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
 
     lib = [heads_first(*a) for a in inputs[:2]]
     out.update(
-        ms=cuda_ms(fa.flash_attention_gqa, inputs),
-        plain_ms=cuda_ms(ref.flash_attention_gqa_ref, inputs[:2], iters=3,
-                         warmup=1),
+        ms=cuda_ms(lambda a, c, d: fa.flash_attention_gqa(a, c, d,
+                                                          window=window),
+                   inputs),
+        plain_ms=cuda_ms(lambda a, c, d: ref.flash_attention_gqa_ref(
+            a, c, d, True, window), inputs[:2], iters=3, warmup=1),
         library_ms=cuda_ms(lambda a, c, d: F.scaled_dot_product_attention(
-            a, c, d, is_causal=True), lib),
+            a, c, d, attn_mask=mask, is_causal=mask is None), lib),
         arithmetic="bf16", **bounds(nbytes, flops, flops, BF16_FLOP_PER_S))
     del lib
     print("kernel_time flash_attention " + json.dumps(out), flush=True)
@@ -1249,11 +1298,15 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
 
 
 def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
-               q_dtype: str = "float32") -> dict:
-    """B11 at the serve shape in the serving layout, q in ``q_dtype``
-    (the serve path's is bfloat16): kernel and plain version beside the
+               q_dtype: str = "float32", host_grid: bool = False) -> dict:
+    """B11 at a decode step's shape in the serving layout, q in
+    ``q_dtype`` (the serve path's is bfloat16), pos a 0-d int32 tensor on
+    the card as decode passes it: kernel and plain version beside the
     bytes bound (every cache byte of the tokens j <= pos read once, q
-    read and the output written once)."""
+    read and the output written once).  ``host_grid``: also the same
+    kernel on the grid a host-int pos sized (splits at live, no idle
+    splits, no combine where one split does), timed in turns with it
+    (device, host, host, device)."""
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
     from repro_torch.kernels import ref
@@ -1277,9 +1330,28 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
          "nounits"], capture_output=True, text=True, timeout=60)
         .stdout.split()[0])
     ex2 = 2 * B * G * live * hd
-    inputs = cold_copies((q, *cache, pos), (1, 2, 3, 4, 5, 6))
+    dpos = torch.tensor(pos, dtype=torch.int32, device="cuda:0")
+    inputs = cold_copies((q, *cache, dpos), (1, 2, 3, 4, 5, 6))
+    ms = cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)
+    if host_grid:
+        def on_host_grid(qq, *rest):
+            qh, heads = gqa_as_heads(qq, rest[:6])
+            return kd._launch(qh, tuple(heads), rest[6], qh.device,
+                              grid_live=live)
+        host = [cuda_ms(on_host_grid, inputs) for _ in range(2)]
+        ms = (ms + cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)) / 2
+        got_h = on_host_grid(q, *cache, dpos)
+        blocks, slots, tile = kd._blocks_slots_tile(B * G, rep, hd, q.dtype,
+                                                    q.device)
+        out.update(host_grid_ms=sum(host) / 2, host_grid_bitwise=bool(
+            torch.equal(got_h.reshape(got.shape), got)),
+            grid_splits=kd.grid_splits(blocks, T, slots, tile),
+            host_grid_splits=kd.splits(blocks, live, slots, tile)[0])
+        if not out["host_grid_bitwise"]:
+            fail(f"kv_dequant_decode_attention at {out}: the fixed grid and "
+                 "the host-int grid disagree")
     out.update(
-        ms=cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs),
+        ms=ms,
         plain_ms=cuda_ms(ref.kv_dequant_decode_attention_gqa_ref, inputs),
         library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
         sfu_bound_ms=ex2 / (SFU_PER_SM_CLOCK * SMS * mhz * 1e6) * 1e3,
@@ -1318,12 +1390,39 @@ def attention_phase() -> dict:
                       cache=all_codes_cache(4, 512, hd, seed=361),
                       label="all codes, sweep of scales")
             for hd in (128, 32) for dt in ("float32", "bfloat16")]
+    # hd 256 (gemma3-12b) and sliding windows: windows below, at and
+    # across the 64-row blocks, a window of 1, gemma3's own at its width
+    b10 += [c for i, (B, S, Hq, G, hd, W) in enumerate([
+        (1, 300, 4, 2, 256, 0), (2, 333, 4, 2, 256, 64),
+        (1, 1100, 2, 1, 256, GEMMA_WINDOW), (2, 500, 4, 2, 128, 100),
+        (1, 260, 2, 1, 64, 1), (1, 2048, 16, 8, 256, GEMMA_WINDOW)])
+        for c in flash_gqa_cases(B, S, Hq, G, hd, seed=230 + i, window=W)]
+    b11 += [kvdq_case(BG, T, 256, rep, pos, seed=370 + i, q_dtype=dt)
+            for i, (BG, T, rep, pos) in enumerate([
+                (2, 1000, 2, 999), (4, 1024, 2, 5000), (64, 1100, 2, 767),
+                (64, 4096, 2, 2049), (3, 300, 5, 64)])
+            for dt in ("float32", "bfloat16")]
+    b11 += [kvdq_case(4, 512, 256, 2, 511, seed=380, q_dtype=dt,
+                      cache=all_codes_cache(4, 512, 256, seed=381),
+                      label="all codes, sweep of scales")
+            for dt in ("float32", "bfloat16")]
     kv_dequant_bitwise()
     b10.append(flash_timed(128, 2048, 128))
     b10.append(flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 32, 8, 128))
     b11 += [kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
                        SERVE_MAX_LEN - 1, dt) for dt in ("float32",
                                                          "bfloat16")]
+    # gemma3-12b's prefill (global and local layers) and decode (a global
+    # layer half way through the cache, against the host-int grid; a ring)
+    b10 += [flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 16, 8, 256, W)
+            for W in (0, GEMMA_WINDOW)]
+    b11 += [kvdq_timed(SERVE_BATCH, 8, 2, SERVE_MAX_LEN, 256, pos, "bfloat16",
+                       host_grid=True)
+            for pos in (SERVE_PROMPT + 1, SERVE_MAX_LEN - 1)]
+    b11.append(kvdq_timed(SERVE_BATCH, 8, 2, GEMMA_WINDOW, 256,
+                          SERVE_PROMPT + GEMMA_STEPS - 1, "bfloat16"))
+    b11.append(kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
+                          SERVE_PROMPT + 1, "bfloat16", host_grid=True))
     return {"flash_attention": b10, "kv_dequant_decode_attention": b11}
 
 
@@ -2058,138 +2157,249 @@ def cli_phase() -> None:
         fail("qsim printed no batched-run line or no trajectory average")
 
 
-# -- phase 13: LLM serving on the compressed KV cache -------------------------
+# -- phases 13-14: LLM serving on the compressed KV cache --------------------
 
-def _serve_run(cfg, params, tokens, forced=None, profile: bool = False):
-    """Prefill ``tokens``, compress the cache, decode SERVE_STEPS greedy
-    tokens (or the ``forced`` ones), through the serving entry points;
-    returns the logits of every step, the tokens fed and timings."""
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _trace(profile: bool):
+    import torch
+    if not profile:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity
+    return torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+
+
+def _prefill(cfg, params, tokens, profile: bool = False) -> tuple:
+    """Prefill ``tokens`` with room for SERVE_MAX_LEN and compress the
+    cache, through the serving entry points; returns the last logits, the
+    compressed cache and timings."""
     import torch
     from repro_torch.serving import make_prefill_step
-    from repro_torch.serving.kvcache import (compress_prefill_cache,
-                                             make_compressed_decode_step)
+    from repro_torch.serving.kvcache import compress_prefill_cache
     prefill = make_prefill_step(cfg, max_len=SERVE_MAX_LEN)
-    decode = make_compressed_decode_step(cfg)
-    trace = contextlib.nullcontext()
-    if profile:
-        from torch.profiler import ProfilerActivity
-        trace = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
-    with trace as prof:
+    with _trace(profile) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        raw_bytes = sum(t.numel() * t.element_size() for c in cache["units"]
-                        for t in c.values())
-        qcache = compress_prefill_cache(cache)
-        del cache
-        comp_bytes = sum(t.numel() * t.element_size()
-                         for c in qcache["units"] for t in c.values())
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        steps, fed = [logits], []
-        for i in range(SERVE_STEPS):
-            tok = (steps[-1].argmax(-1) if forced is None
-                   else forced[:, i])[:, None]
-            fed.append(tok)
-            logits, qcache = decode(params, {"token": tok, "cache": qcache,
-                                             "pos": SERVE_PROMPT + i})
-            steps.append(logits)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-    del qcache
+    raw = sum(t.numel() * t.element_size() for c in cache["units"]
+              for t in c.values())
+    qcache = compress_prefill_cache(cache)
+    del cache
+    comp = sum(t.numel() * t.element_size() for c in qcache["units"]
+               for t in c.values())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     timing = {"prefill_s": t1 - t0, "compress_s": t2 - t1,
-              "decode_s": t3 - t2,
-              "decode_ms_per_step": (t3 - t2) / SERVE_STEPS * 1e3,
               "prefill_tokens_per_s": tokens.numel() / (t1 - t0),
-              "decode_tokens_per_s": SERVE_BATCH * SERVE_STEPS / (t3 - t2),
-              "raw_cache_bytes": raw_bytes,
-              "compressed_cache_bytes": comp_bytes,
-              "cache_ratio": raw_bytes / comp_bytes}
+              "raw_cache_bytes": raw, "compressed_cache_bytes": comp,
+              "cache_ratio": raw / comp}
     if profile:
-        timing["profile"] = device_profile(prof, t3 - t0)
-    return steps, torch.cat(fed, dim=1), timing
+        timing["profile"] = device_profile(prof, t1 - t0)
+    return logits, qcache, timing
 
 
-def serve_phase(seed: int, profile: bool) -> dict:
-    """qwen3-4b prefill + compressed decode on the kernels, then on their
-    plain versions teacher-forced on the same tokens.  Returns the first
-    run's launches."""
-    from unittest import mock
+def _decode(cfg, params, qcache, first, steps: int, captured: bool,
+            forced=None, profile: bool = False) -> tuple:
+    """``steps`` compressed decode steps from SERVE_PROMPT on ``qcache``
+    (greedy from ``first``, or the ``forced`` tokens), eager or through
+    CapturedDecodeStep (warmed up and captured on the first step's inputs
+    before the timed run, so every step is a replay).  The launch counts
+    are set to 0 just before the steps; returns every step's logits, the
+    tokens fed, timings and the steps' launches (the captured step's
+    replays counted by the step)."""
+    import torch
+    from repro_torch.serving import CapturedDecodeStep
+    from repro_torch.serving.kvcache import make_compressed_decode_step
+    decode = make_compressed_decode_step(cfg)
+    first = first if forced is None else forced[:, :1]
+    if captured:
+        step = CapturedDecodeStep(cfg, decode, params, qcache)
+        step.capture(first, SERVE_PROMPT)
+        torch.cuda.synchronize()
+    else:
+        def step(tok, pos):
+            return decode(params, {"token": tok, "cache": qcache,
+                                   "pos": pos})[0]
+    reset_counts()
+    out, fed, tok = [], [], first
+    with _trace(profile) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if i:
+                tok = (out[-1].argmax(-1)[:, None] if forced is None
+                       else forced[:, i:i + 1])
+            fed.append(tok)
+            logits = step(tok, SERVE_PROMPT + i)
+            out.append(logits.clone() if captured else logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = read_counts()
+    if captured:
+        for k, n in step.launches().items():
+            launches[k] += n
+    B = first.shape[0]
+    timing = {"decode_s": t1 - t0, "decode_ms_per_step": (t1 - t0) / steps
+              * 1e3, "decode_tokens_per_s": B * steps / (t1 - t0),
+              "launches": {k: v for k, v in launches.items() if v}}
+    if profile:
+        timing["profile"] = device_profile(prof, t1 - t0)
+        timing["profile"]["kernel_counts"] = {
+            k: sum(e.count for e in prof.key_averages()
+                   if k in e.key and e.self_device_time_total > 0)
+            for k in ("kvdq_partial_kernel", "kvdq_combine_kernel",
+                      "flash_bf16_kernel", "flash_f32_kernel")}
+    return out, torch.cat(fed, dim=1), timing, launches
 
-    import numpy as np
+
+def _init_model(label: str, arch: str, seed: int):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import transformer as T
-    from repro_torch.serving import kvcache as kv_mod
-
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
-    leaves = [t for t in _leaves(params)]
+    leaves = list(_leaves(params))
     n_bf16 = sum(t.numel() for t in leaves if t.dtype == torch.bfloat16)
     n_f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    print(f"serve_model {SERVE_ARCH} layers={cfg.n_layers} "
-          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-          f"hd={cfg.hd} params={n_bf16 + n_f32} bf16={n_bf16} f32={n_f32} "
-          f"param_count()={cfg.param_count()} init_s={t_init:.3f}",
-          flush=True)
+    print(f"{label}_model {arch} layers={cfg.n_layers} "
+          f"kinds={','.join(sorted(set(cfg.pattern)))} "
+          f"window={cfg.sliding_window} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+          f"params={n_bf16 + n_f32} bf16={n_bf16} f32={n_f32} "
+          f"param_count()={cfg.param_count()} "
+          f"init_s={time.perf_counter() - t0:.3f}", flush=True)
+    return cfg, params, 2 * n_bf16 + 4 * n_f32
+
+
+def _rel_errs(got, want) -> list[float]:
+    return [float((a - b).abs().max()) / float(a.abs().max())
+            for a, b in zip(got, want)]
+
+
+def serve_phase(label: str, arch: str, steps: int, seed: int,
+                profile: bool, eager_too: bool) -> dict:
+    """``arch`` at full width and depth (bf16 weights drawn on cuda:0 from
+    ``seed``): prefill 8 x 2,048 tokens (max_len 4,096), compress the
+    cache, ``steps`` compressed decode steps through CapturedDecodeStep
+    (with ``eager_too`` first eagerly, from a copy of the same cache: the
+    two bit for bit at every step); exactly one B10 launch a layer and one
+    B11 a layer a step; then the same prompts with the two kernels' plain
+    versions patched in (0 launches), teacher-forced on the captured run's
+    tokens, within SERVE_LOGIT_RTOL * max|logits| at every step; cache >=
+    KV_RATIO_MIN smaller than bf16.  Returns the captured run's launches
+    (prefill and replays)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving import kvcache as kv_mod
+
+    cfg, params, weight_bytes = _init_model(label, arch, seed)
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
-
-    reset_counts()
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda:0")
     torch.cuda.reset_peak_memory_stats()
-    steps, fed, timing = _serve_run(cfg, params, tokens, profile=profile)
-    launches = read_counts()
-    timing["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    timing["launches"] = {k: v for k, v in launches.items() if v}
-    print("serve_stats " + json.dumps(timing), flush=True)
-    want = {"flash_attention": cfg.n_layers,
-            "kv_dequant_decode_attention": cfg.n_layers * SERVE_STEPS}
-    for k, n in want.items():
-        if launches[k] != n:
-            fail(f"serve launched {k} {launches[k]} times, not {n}")
-    if timing["cache_ratio"] < KV_RATIO_MIN:
-        fail(f"serve: compressed cache only {timing['cache_ratio']:.3f}x "
+    reset_counts()
+    logits0, qcache, stats = _prefill(cfg, params, tokens, profile)
+    prefill_launches = read_counts()
+    first = logits0.argmax(-1)[:, None]
+    want_b10 = {"flash_attention": cfg.n_layers,
+                "kv_dequant_decode_attention": 0}
+    want_b11 = {"flash_attention": 0,
+                "kv_dequant_decode_attention": cfg.n_layers * steps}
+    runs = {}
+    if eager_too:
+        eager_cache = _clone_tree(qcache)
+        runs["eager"] = _decode(cfg, params, eager_cache, first, steps,
+                                False, profile=profile)
+        del eager_cache
+    runs["captured"] = _decode(cfg, params, qcache, first, steps, True,
+                               profile=profile)
+    del qcache
+    stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    stats["weight_bytes"] = weight_bytes
+    stats["weight_read_floor_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
+    stats["prefill_launches"] = {k: v for k, v in prefill_launches.items()
+                                 if v}
+    for name, (_, _, timing, _) in runs.items():
+        stats[name] = timing
+    print(f"{label}_stats " + json.dumps(stats), flush=True)
+    checks = [("prefill", prefill_launches, want_b10)]
+    checks += [(name, run[3], want_b11) for name, run in runs.items()]
+    for name, got, want in checks:
+        for k, n in want.items():
+            if got[k] != n:
+                fail(f"{label}: {name} launched {k} {got[k]} times, not {n}")
+    cap_prof = runs["captured"][2].get("profile")
+    if cap_prof is not None:
+        # a trace of graph replays may drop some records of every kernel
+        # of the step alike (seen on one H100, under one replay's worth):
+        # it must hold what the step counted, less fewer than one replay's
+        # launches
+        traced = cap_prof["kernel_counts"]["kvdq_partial_kernel"]
+        counted = want_b11["kv_dequant_decode_attention"]
+        if not counted - cfg.n_layers < traced <= counted:
+            fail(f"{label}: the captured run's trace holds {traced} "
+                 f"kvdq_partial_kernel launches, the step counted {counted}")
+    if stats["cache_ratio"] < KV_RATIO_MIN:
+        fail(f"{label}: compressed cache only {stats['cache_ratio']:.3f}x "
              f"smaller than bf16 (want >= {KV_RATIO_MIN})")
+    steps_c, fed = [logits0] + runs["captured"][0], runs["captured"][1]
+    equal = None
+    if eager_too:
+        equal = [bool(torch.equal(a, b)) for a, b in
+                 zip(runs["eager"][0], runs["captured"][0])]
+        del runs["eager"]
 
-    # the same run on the plain versions, patched in where the model
-    # modules call the kernels, teacher-forced on the tokens above
+    # the same prompts on the plain versions, patched in where the model
+    # modules call the kernels, teacher-forced on the captured run's tokens
     with mock.patch.object(attn_mod, "flash_attention_gqa",
                            ref.flash_attention_gqa_ref), \
             mock.patch.object(kv_mod, "kv_dequant_decode_attention_gqa",
                               ref.kv_dequant_decode_attention_gqa_ref):
         reset_counts()
-        plain, _, plain_timing = _serve_run(cfg, params, tokens, forced=fed)
+        p0, pcache, ptiming = _prefill(cfg, params, tokens)
+        plain, _, pdec, _ = _decode(cfg, params, pcache, None, steps, False,
+                                    forced=fed)
         plain_launches = read_counts()
+        del pcache
     if any(plain_launches.values()):
-        fail(f"serve: the plain run launched kernels: {plain_launches}")
-    errs = []
-    for a, b in zip(steps, plain):
-        scale = float(a.abs().max())
-        errs.append(float((a - b).abs().max()) / scale)
-    finite = all(bool(torch.isfinite(a).all()) for a in steps)
+        fail(f"{label}: the plain run launched kernels: {plain_launches}")
+    errs = _rel_errs(steps_c, [p0] + plain)
+    finite = all(bool(torch.isfinite(a).all()) for a in steps_c)
     res = {"max_rel_err": max(errs), "prefill_rel_err": errs[0],
            "decode_rel_err_max": max(errs[1:]), "bound": SERVE_LOGIT_RTOL,
-           "finite": finite, "logits_shape": list(steps[0].shape),
+           "eager_equals_captured": equal, "finite": finite,
+           "logits_shape": list(steps_c[0].shape),
            "tokens": fed[0, :8].tolist(),
-           "plain_prefill_s": plain_timing["prefill_s"],
-           "plain_decode_ms_per_step": plain_timing["decode_ms_per_step"]}
-    print("serve_check " + json.dumps(res), flush=True)
-    if not finite or list(steps[0].shape) != [SERVE_BATCH, cfg.vocab]:
-        fail("serve: logits are not finite or not (batch, vocab)")
+           "plain_prefill_s": ptiming["prefill_s"],
+           "plain_decode_ms_per_step": pdec["decode_ms_per_step"]}
+    print(f"{label}_check " + json.dumps(res), flush=True)
+    if not finite or list(steps_c[0].shape) != [SERVE_BATCH, cfg.vocab]:
+        fail(f"{label}: logits are not finite or not (batch, vocab)")
+    if equal is not None and not all(equal):
+        fail(f"{label}: the captured step's logits differ from the eager "
+             f"step's at steps {[i for i, e in enumerate(equal) if not e]}")
     if not max(errs) <= SERVE_LOGIT_RTOL:
-        fail(f"serve: kernel and plain runs differ by {max(errs):.3e} of "
+        fail(f"{label}: kernel and plain runs differ by {max(errs):.3e} of "
              f"max|logits| (bound {SERVE_LOGIT_RTOL})")
-    del params
+    launches = dict(runs["captured"][3])
+    launches["flash_attention"] += prefill_launches["flash_attention"]
+    del params, runs
     torch.cuda.empty_cache()
     return launches
 
@@ -2311,24 +2521,42 @@ def main() -> int:
               flush=True)
     tensor_core_check(build, log)
 
-    checks = kernel_phase()
-    checks.update(codec_phase())
-    checks.update(gate_phase())
-    checks.update(pack_phase())
-    checks.update(attention_phase())
-    launches = {"ops": ops_phase(), "single_group": single_group_phase()}
-    launches["main"] = main_phase("main", MAIN_QUBITS, "host", args.profile)
-    launches["main_device"] = main_phase("main_device", args.device_qubits,
-                                         "device", args.profile)
-    launches["main_pergate"] = main_phase("main_pergate", MAIN_QUBITS,
-                                          "device", args.profile,
-                                          gate_schedule=False)
-    launches["main_batch"] = batch_phase(args.profile)
-    launches["service"] = service_phase()
-    precision_phase()
-    resilience_phase()
-    cli_phase()
-    launches["serve"] = serve_phase(args.seed, args.profile)
+    t_phase = time.perf_counter()
+
+    def timed(name: str, result=None):
+        """Print the seconds since the last phase ended (the phase
+        ``name``'s) and pass ``result`` through."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase_s {name} {now - t_phase:.3f}", flush=True)
+        t_phase = now
+        return result
+
+    checks = timed("kernels", kernel_phase())
+    checks.update(timed("codec", codec_phase()))
+    checks.update(timed("gate", gate_phase()))
+    checks.update(timed("pack", pack_phase()))
+    checks.update(timed("attention", attention_phase()))
+    launches = {"ops": timed("ops", ops_phase()),
+                "single_group": timed("single_group", single_group_phase())}
+    launches["main"] = timed("main", main_phase("main", MAIN_QUBITS, "host",
+                                                args.profile))
+    launches["main_device"] = timed("main_device", main_phase(
+        "main_device", args.device_qubits, "device", args.profile))
+    launches["main_pergate"] = timed("main_pergate", main_phase(
+        "main_pergate", MAIN_QUBITS, "device", args.profile,
+        gate_schedule=False))
+    launches["main_batch"] = timed("main_batch", batch_phase(args.profile))
+    launches["service"] = timed("service", service_phase())
+    timed("precision", precision_phase())
+    timed("resilience", resilience_phase())
+    timed("cli", cli_phase())
+    launches["serve"] = timed("serve", serve_phase(
+        "serve", SERVE_ARCH, SERVE_STEPS, args.seed, args.profile,
+        eager_too=True))
+    launches["serve_gemma3"] = timed("serve_gemma3", serve_phase(
+        "serve_gemma3", GEMMA_ARCH, GEMMA_STEPS, args.seed, args.profile,
+        eager_too=False))
     print(json.dumps({"kernels": kernel_report(checks, launches)}),
           flush=True)
     print(gpu, flush=True)

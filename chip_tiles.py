@@ -277,7 +277,8 @@ def kvdq_probe_times(cs, kd) -> dict:
     cache = cs.kv_cache_case((B, G), T, hd, 7)
     q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0") \
         .bfloat16()
-    inputs = cs.cold_copies((q, *cache, T - 1), (1, 2, 3, 4, 5, 6))
+    pos = torch.tensor(T - 1, dtype=torch.int32, device="cuda:0")
+    inputs = cs.cold_copies((q, *cache, pos), (1, 2, 3, 4, 5, 6))
     ms = cs.cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)
     for i in range(int(1000 / ms)):
         kd.kv_dequant_decode_attention_gqa(*inputs[i % len(inputs)])

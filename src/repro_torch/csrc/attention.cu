@@ -31,7 +31,15 @@
 //     are double-buffered in shared memory with 16-byte cp.async;
 //   * causal K tiles past the block's last row are never read, a warp skips
 //     a tile wholly above its rows, and blocks of the causal diagonal's far
-//     end (the longest rows) launch first, to shorten the tail.
+//     end (the longest rows) launch first, to shorten the tail;
+//   * a sliding window W (gemma3's local layers; repro masks i - j < W in
+//     XLA, models/attention.py:110-112) skips the K tiles wholly below the
+//     block's first row's window and a warp those below its own, and masks
+//     the boundary tiles.  A row whose first tiles are all masked carries
+//     p = 1 against m = -2^30 until its first live key, whose rescale
+//     exp2(-2^30 - m) is 0 and clears it, as the plain softmax gives 0;
+//   * hd = 256 (gemma3) holds one m-tile a warp (a 64 x 256 accumulator is
+//     128 registers) and narrower K/V tiles, so two blocks share an SM.
 //
 // kvdq_partial_kernel / kvdq_combine_kernel replace
 // repro/kernels/kv_dequant_attention.py::kv_dequant_decode_attention (body
@@ -71,6 +79,13 @@
 // together 0.074.  The arithmetic, not the bytes, sets the pace, and not
 // through issue slots alone: QK^T on the tensor cores saved ~5%, integer
 // bf16 rounding (+3 integer ops an element) cost 17%.
+// pos lives in device memory (repro's pos_ref), so one launch serves every
+// step of a captured decode (CUDA graphs): the grid is fixed on the host
+// from the cache length T, and each block finds live = min(T, pos + 1) and
+// its span itself, by kv_dequant_attention.py::splits; a split whose span
+// starts at or past live leaves a neutral partial (m = -2^30, l = 0, P·V =
+// 0) that the combine weighs by exp(-2^30 - max) = 0.  At hd = 256 a tile
+// is 64 tokens (two blocks an SM) and a lane takes 8 dims in P·V.
 // Rounding follows q's type, as repro's serving decode does (the cache
 // dequantizes to the model's dtype, dequantize_kv; _gqa_out rounds the
 // probabilities to v's): for a bf16 q each dequantized K and V element is
@@ -82,6 +97,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "cp_async.cuh"
@@ -90,6 +106,21 @@ namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the TPU kernels' mask
 constexpr float kLFloor = 1e-30f;
+
+// The dynamic shared memory a kernel may take, set once a device: after the
+// first (eager) launch a launch makes no runtime call but the launch itself
+// and cudaGetDevice / cudaGetLastError, all legal under stream capture.
+template <auto Kernel>
+cudaError_t smem_once(int smem) {
+  static std::atomic<bool> done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev].load())) return err;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < 64) done[dev].store(true);
+  return err;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -197,19 +228,39 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
 }
 
 // Scores of n-tile j (keys k0 + 8j + 2t + {0, 1}) for rows r0 (c0, c1) and
-// r0 + 8 (c2, c3) set to -2^30 where masked: past S, or above the diagonal.
+// r0 + 8 (c2, c3) set to -2^30 where masked: past S, above the diagonal, or
+// (window W > 0) W or more keys below the row.
 template <int NJ>
 __device__ __forceinline__ void mask_scores(float (&sc)[NJ][4], int k0,
                                             int r0, int t, int S,
-                                            int causal) {
+                                            int causal, int window) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int key = k0 + 8 * j + 2 * t + (u & 1);
       const int row = r0 + 8 * (u >> 1);
-      if (key >= S || (causal && key > row)) sc[j][u] = kNegInf;
+      if (key >= S || (causal && key > row) ||
+          (window && row - key >= window))
+        sc[j][u] = kNegInf;
     }
+}
+
+// Does m-tile rows [r, r + 15] x keys [k0, k0 + BK) hold a masked pair?
+template <int BK>
+__device__ __forceinline__ bool needs_mask(int k0, int r, int S, int causal,
+                                           int window) {
+  return k0 + BK > S || (causal && k0 + BK - 1 > r) ||
+         (window && r + 15 - k0 >= window);
+}
+
+// Does a warp whose lowest row is w0 and highest w1 read K tile [k0, k0 +
+// BK) at all: not wholly above its rows (causal), not wholly W or more
+// below its lowest row (window)?
+template <int BK>
+__device__ __forceinline__ bool warp_reads(int k0, int w0, int w1, int causal,
+                                           int window) {
+  return !(causal && k0 > w1) && !(window && w0 - (k0 + BK - 1) >= window);
 }
 
 // One tile's online softmax on the accumulator fragments of rows g (i = 0)
@@ -264,13 +315,24 @@ __device__ __forceinline__ void finish_rows(float (&l)[2]) {
 // reads; MT = 2 holds 32 rows' accumulators, the most 255 registers take.
 // The values below timed fastest at hd = 128 on one H100 among those
 // chip_tiles.py tries (PERF.md §6); it builds the source with others by
-// defining FLASH_TILING (MT, BK for bf16, then for f32).
+// defining FLASH_TILING (MT, BK for bf16, then for f32).  At hd = 256 a
+// warp holds one m-tile (128 accumulator registers) and the K/V tiles are
+// narrower, so that a block's shared memory lets two share an SM
+// (FLASH_TILING_256: bf16 64 x 256 Q and 2 x 2 x 32 K/V rows of 264 bf16,
+// 101,376 bytes; f32 1 x 16, 137,728 bytes, one block an SM).
 #ifndef FLASH_TILING
 #define FLASH_TILING 2, 64, 2, 16
 #endif
+#ifndef FLASH_TILING_256
+#define FLASH_TILING_256 1, 32, 1, 16
+#endif
 constexpr int kFlashTiling[] = {FLASH_TILING};
-constexpr int kMTh = kFlashTiling[0], kBKh = kFlashTiling[1];  // bf16
-constexpr int kMTf = kFlashTiling[2], kBKf = kFlashTiling[3];  // f32
+constexpr int kFlashTiling256[] = {FLASH_TILING_256};
+// tiling constant i (MT, BK for bf16, then for f32) at head dim D
+template <int D>
+constexpr int flash_tile(int i) {
+  return D > 128 ? kFlashTiling256[i] : kFlashTiling[i];
+}
 
 template <int D, int MT, int BK>
 constexpr int flash_bf16_smem() {
@@ -294,7 +356,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
                   const __nv_bfloat16* __restrict__ v, long long vb,
                   long long vs, long long vh, __nv_bfloat16* __restrict__ o,
                   long long ob, long long os, long long oh, int S, int Hq,
-                  int rep, int causal, float sl2, int vec) {
+                  int rep, int causal, int window, float sl2,
+                  int vec) {
   using bf16 = __nv_bfloat16;
   constexpr int BQ = 64 * MT, P = D + 8, NJ = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -315,9 +378,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
 
   int n_kt = (S + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  // the first K tile any row of the block reads (window: key q0 - W + 1)
+  const int kt0 = window ? max(0, q0 - window + 1) / BK : 0;
   load_tile<BQ, D, P>(Qs, qp, qs, q0, S, vec);
-  load_tile<BK, D, P>(Ks, kp, ks, 0, S, vec);
-  load_tile<BK, D, P>(Vs, vp, vs, 0, S, vec);
+  load_tile<BK, D, P>(Ks, kp, ks, kt0 * BK, S, vec);
+  load_tile<BK, D, P>(Vs, vp, vs, kt0 * BK, S, vec);
   cp_async_commit();
 
   float acc[MT][ND][4], m[MT][2], l[MT][2];
@@ -332,8 +397,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
   }
   const bf16* qa_row = Qs + (16 * warp + (lane & 15)) * P + 8 * (lane >> 4);
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK, buf = kt & 1;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK, buf = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {
       load_tile<BK, D, P>(Ks + (buf ^ 1) * BK * P, kp, ks, k0 + BK, S, vec);
       load_tile<BK, D, P>(Vs + (buf ^ 1) * BK * P, vp, vs, k0 + BK, S, vec);
@@ -343,8 +408,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
       cp_async_wait<0>();
     }
     __syncthreads();
-    // a warp whose rows all lie above the tile's first key has nothing here
-    if (!(causal && k0 > w1)) {
+    // a warp whose rows all lie above the tile's first key, or W or more
+    // past its last, has nothing here
+    if (warp_reads<BK>(k0, w0, w1, causal, window)) {
       const bf16* Kt = Ks + buf * BK * P;
       const bf16* Vt = Vs + buf * BK * P;
       float sc[MT][NJ][4];
@@ -374,8 +440,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        if (k0 + BK > S || (causal && k0 + BK - 1 > w0 + 64 * i))
-          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal);
+        if (needs_mask<BK>(k0, w0 + 64 * i, S, causal, window))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal, window);
         float alpha[2];
         softmax_tile(sc[i], m[i], l[i], alpha, sl2);
 #pragma unroll
@@ -460,8 +526,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
                  long long ks, long long kh, const float* __restrict__ v,
                  long long vb, long long vs, long long vh,
                  float* __restrict__ o, long long ob, long long os,
-                 long long oh, int S, int Hq, int rep, int causal, float sl2,
-                 int vec) {
+                 long long oh, int S, int Hq, int rep, int causal, int window,
+                 float sl2, int vec) {
   constexpr int BQ = 64 * MT, NJ = BK / 8, ND = D / 8;
   constexpr int PK = F32Pitch<D>::K, PV = F32Pitch<D>::V;
   extern __shared__ __align__(16) float smem[];
@@ -482,9 +548,11 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
 
   int n_kt = (S + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  // the first K tile any row of the block reads (window: key q0 - W + 1)
+  const int kt0 = window ? max(0, q0 - window + 1) / BK : 0;
   load_tile<BQ, D, PK>(Qs, qp, qs, q0, S, vec);
-  load_tile<BK, D, PK>(Ks, kp, ks, 0, S, vec);
-  load_tile<BK, D, PV>(Vs, vp, vs, 0, S, vec);
+  load_tile<BK, D, PK>(Ks, kp, ks, kt0 * BK, S, vec);
+  load_tile<BK, D, PV>(Vs, vp, vs, kt0 * BK, S, vec);
   cp_async_commit();
 
   float acc[MT][ND][4], m[MT][2], l[MT][2];
@@ -499,8 +567,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
   }
   const float* qrow = Qs + (16 * warp + g) * PK + 4 * t;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK, buf = kt & 1;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK, buf = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {
       load_tile<BK, D, PK>(Ks + (buf ^ 1) * BK * PK, kp, ks, k0 + BK, S, vec);
       load_tile<BK, D, PV>(Vs + (buf ^ 1) * BK * PV, vp, vs, k0 + BK, S, vec);
@@ -510,7 +578,7 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (!(causal && k0 > w1)) {
+    if (warp_reads<BK>(k0, w0, w1, causal, window)) {
       const float* Kt = Ks + buf * BK * PK + g * PK + 4 * t;
       const float* Vt = Vs + buf * BK * PV + 2 * t * PV + 2 * g;
       float sc[MT][NJ][4];
@@ -556,8 +624,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        if (k0 + BK > S || (causal && k0 + BK - 1 > w0 + 64 * i))
-          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal);
+        if (needs_mask<BK>(k0, w0 + 64 * i, S, causal, window))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal, window);
         float alpha[2];
         softmax_tile(sc[i], m[i], l[i], alpha, sl2);
 #pragma unroll
@@ -628,24 +696,22 @@ inline bool aligned16(const void* p, const long long* st, size_t el) {
          (st[2] * el) % 16 == 0;
 }
 
-template <typename T, typename Kernel>
-cudaError_t launch_flash(Kernel kernel, int smem, int bq, const void* q,
-                         const long long* qst, const void* k,
-                         const long long* kst, const void* v,
+template <typename T, auto Kernel>
+cudaError_t launch_flash(int smem, int bq, const void* q, const long long* qst,
+                         const void* k, const long long* kst, const void* v,
                          const long long* vst, void* o, const long long* ost,
                          int B, int S, int Hq, int G, int D, int causal,
-                         cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                         int window, cudaStream_t stream) {
+  cudaError_t err = smem_once<Kernel>(smem);
   if (err != cudaSuccess) return err;
   const int vec = aligned16(q, qst, sizeof(T)) &&
                   aligned16(k, kst, sizeof(T)) && aligned16(v, vst, sizeof(T));
   const dim3 grid((unsigned)(B * Hq), (unsigned)((S + bq - 1) / bq));
-  kernel<<<grid, kFThreads, smem, stream>>>(
+  Kernel<<<grid, kFThreads, smem, stream>>>(
       static_cast<const T*>(q), qst[0], qst[1], qst[2],
       static_cast<const T*>(k), kst[0], kst[1], kst[2],
       static_cast<const T*>(v), vst[0], vst[1], vst[2], static_cast<T*>(o),
-      ost[0], ost[1], ost[2], S, Hq, Hq / G, causal,
+      ost[0], ost[1], ost[2], S, Hq, Hq / G, causal, window,
       1.4426950408889634f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
@@ -655,27 +721,29 @@ cudaError_t launch_flash_d(int bf16, const void* q, const long long* qst,
                            const void* k, const long long* kst,
                            const void* v, const long long* vst, void* o,
                            const long long* ost, int B, int S, int Hq, int G,
-                           int causal, cudaStream_t s) {
+                           int causal, int window, cudaStream_t s) {
+  constexpr int MTh = flash_tile<D>(0), BKh = flash_tile<D>(1);
+  constexpr int MTf = flash_tile<D>(2), BKf = flash_tile<D>(3);
   if (bf16)
-    return launch_flash<__nv_bfloat16>(
-        flash_bf16_kernel<D, kMTh, kBKh>,
-        flash_bf16_smem<D, kMTh, kBKh>(), 64 * kMTh, q, qst, k, kst, v, vst,
-        o, ost, B, S, Hq, G, D, causal, s);
-  return launch_flash<float>(
-      flash_f32_kernel<D, kMTf, kBKf>, flash_f32_smem<D, kMTf, kBKf>(),
-      64 * kMTf, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, D, causal, s);
+    return launch_flash<__nv_bfloat16, flash_bf16_kernel<D, MTh, BKh>>(
+        flash_bf16_smem<D, MTh, BKh>(), 64 * MTh, q, qst, k, kst, v, vst, o,
+        ost, B, S, Hq, G, D, causal, window, s);
+  return launch_flash<float, flash_f32_kernel<D, MTf, BKf>>(
+      flash_f32_smem<D, MTf, BKf>(), 64 * MTf, q, qst, k, kst, v, vst, o,
+      ost, B, S, Hq, G, D, causal, window, s);
 }
 
 cudaError_t dispatch_flash(int bf16, const void* q, const long long* qst,
                            const void* k, const long long* kst,
                            const void* v, const long long* vst, void* o,
                            const long long* ost, int B, int S, int Hq, int G,
-                           int hd, int causal, cudaStream_t s) {
+                           int hd, int causal, int window, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_flash_d<16>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 32: return launch_flash_d<32>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 64: return launch_flash_d<64>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
-    case 128: return launch_flash_d<128>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, s);
+    case 16: return launch_flash_d<16>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
+    case 32: return launch_flash_d<32>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
+    case 64: return launch_flash_d<64>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
+    case 128: return launch_flash_d<128>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
+    case 256: return launch_flash_d<256>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -692,6 +760,15 @@ cudaError_t dispatch_flash(int bf16, const void* q, const long long* qst,
 constexpr int kKvTiling[] = {KV_TILING};
 constexpr int kKvTile = kKvTiling[0], kKvStages = kKvTiling[1],
               kKvBlocksSM = kKvTiling[2], kKvKDims = kKvTiling[3];
+// Tokens a tile at hd = 256: 64, so that two blocks share an SM (two ring
+// stages of 74,752 bytes)
+#ifndef KV_TILE_256
+#define KV_TILE_256 64
+#endif
+constexpr int kKvTile256 = KV_TILE_256;
+__host__ __device__ constexpr int kv_tile(int hd) {
+  return hd > 128 ? kKvTile256 : kKvTile;
+}
 constexpr int kKvThreads = 256, kKvWarps = kKvThreads / 32;
 constexpr int kKvRows = 4;         // query rows a block (a row block)
 constexpr float kKvFastScale = -100.0f;
@@ -815,7 +892,7 @@ __host__ __device__ constexpr int kv_log2(int x) {
 // of V (every section a 16-byte multiple)
 template <int HD>
 __host__ __device__ constexpr int kv_stage_bytes() {
-  return kKvTile * (2 * HD + 2 * (HD / 8) + 2 * 4);
+  return kv_tile(HD) * (2 * HD + 2 * (HD / 8) + 2 * 4);
 }
 
 // Cached dims a lane takes in QK^T, and the pitch (in floats) of a lane's
@@ -834,12 +911,11 @@ template <int HD>
 __host__ __device__ constexpr int kv_smem_bytes() {
   return kKvStages * kv_stage_bytes<HD>() +
          4 * (kKvRows * (HD / kv_kdims<HD>()) * kv_qpitch<HD>() +
-              kKvRows * kKvTile + kKvTile * kKvRows + kKvWarps * kKvRows +
-              kKvRows);
+              2 * kKvRows * kv_tile(HD) + kKvWarps * kKvRows + kKvRows);
 }
 
 // One block: query rows r0 .. r0 + 3 of one (batch, kv head) over the
-// tokens [s0, s1) of its split, walked as tiles of kKvTile tokens through a
+// tokens [s0, s1) of its split, walked as tiles of kv_tile(HD) tokens through a
 // ring of kKvStages cp.async stages that carry each tile's K and V codes,
 // signs and scales together, so the next tiles are in flight while this one
 // is dequantized and multiplied.  A tile:
@@ -862,31 +938,35 @@ __host__ __device__ constexpr int kv_smem_bytes() {
 //     all scores, the running max m and the rescale exp(m - m_new) of its
 //     accumulators, p = exp(s - m_new) for its own tokens (rounded to bf16
 //     for a bf16 q, the f32 sum of the unrounded p kept a lane), then P·V
-//     over the same tokens: 4 dims a lane (one 32-bit code load), the 4 rows'
-//     p as one broadcast float4;
+//     over the same tokens: 4 dims a lane (one 32-bit code load; 8 at hd =
+//     256, two loads), the 4 rows' p as one broadcast float4;
 //   * the block barrier at the top of the next tile both publishes that
 //     tile's copies and frees the stage the next copy reuses.
 // At the end the warps' accumulators and sums meet in shared memory (the
 // ring's bytes) and the block writes its rows, normalised (one split) or as
-// a partial (max, sum, P·V) for kvdq_combine_kernel.
+// a partial (max, sum, P·V) for kvdq_combine_kernel.  The block reads pos
+// itself: live = min(T, pos + 1), and its span by splits' rule with at most
+// max_split spans; a split past the last span writes the neutral partial.
 template <int HD, typename TQ>
 __global__ void __launch_bounds__(kKvThreads, kKvBlocksSM)
 kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
                     long long qr, KvView kc, KvView vc, int sign_lw,
                     float* __restrict__ out, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int G, int rep, int n_rb,
-                    int span, int live, float scale, float step) {
-  constexpr int TT = kKvTile, S = kKvStages, R = kKvRows;
+                    const int* __restrict__ pos, int T, int max_split,
+                    float scale, float step) {
+  constexpr int TT = kv_tile(HD), S = kKvStages, R = kKvRows;
   constexpr int KD = kv_kdims<HD>(), QP = kv_qpitch<HD>();
   constexpr int LPT = HD / KD;        // QK^T: lanes a token
   constexpr int TPW = 32 / LPT;       // tokens a warp step
   constexpr int KPASS = (TT + kKvWarps * TPW - 1) / (kKvWarps * TPW);
-  constexpr int LPV = HD / 4;         // P·V: lanes a token
+  constexpr int DPL = HD > 128 ? HD / 32 : 4;  // P·V: dims a lane
+  constexpr int LPV = HD / DPL;       // P·V: lanes a token
   constexpr int TPV = 32 / LPV;       // tokens a warp step
   constexpr int TW = TT / kKvWarps;   // P·V: tokens a warp owns a tile
   constexpr int SB = kv_stage_bytes<HD>();
   static_assert((KD == 8 || KD == 16) && LPT <= 32 && LPV <= 32,
-                "hd in 16 .. 128; a lane's QK^T signs are one or two bytes");
+                "hd in 16 .. 256; a lane's QK^T signs are one or two bytes");
   static_assert(TT % 64 == 0 && TW % TPV == 0, "whole warps of pairs");
   static_assert(S * SB >= 4 * kKvWarps * R * HD, "the ring holds the sums");
   extern __shared__ __align__(16) unsigned char kv_smem[];
@@ -901,8 +981,26 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   const int bg = blockIdx.x / n_rb, rb = blockIdx.x % n_rb;
   const int b = bg / G, g = bg % G, r0 = rb * R;
   const int split = blockIdx.y, n_split = gridDim.y;
+  // splits(blocks, live, slots, tile) of kv_dequant_attention.py, with
+  // max_split = slots // blocks (pos + 1 taken after the clamp: no overflow)
+  const int live = max(0, min(T - 1, __ldg(pos)) + 1);
+  const int n_span = max(1, min(max_split, (live + TT - 1) / TT));
+  const int span = ((live + n_span - 1) / n_span + TT - 1) / TT * TT;
   const int s0 = split * span, s1 = min(live, s0 + span);
   const int n_tiles = (s1 - s0 + TT - 1) / TT;
+  const int rows = min(R, rep - r0);
+  const long long slot = (long long)bg * n_split + split;
+  if (n_split > 1 && s0 >= live) {  // past the live tokens: a neutral partial
+    for (int e = tid; e < rows * HD; e += kKvThreads) {
+      const int r = e / HD, d = e % HD;
+      part_acc[(slot * rep + r0 + r) * HD + d] = 0.f;
+      if (d == 0) {
+        part_ml[(slot * rep + r0 + r) * 2] = kNegInf;
+        part_ml[(slot * rep + r0 + r) * 2 + 1] = 0.f;
+      }
+    }
+    return;
+  }
 
   // f32 q: rows r0 .. r0 + 3 (0 past rep) in shared memory, a lane's KD
   // dims QP floats apart, published by the ring's first barrier.  bf16 q:
@@ -1011,12 +1109,12 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
     return (int)ok;
   };
 
-  float m_run[R], acc[R][4], l_part = 0.f;
+  float m_run[R], acc[R][DPL], l_part = 0.f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m_run[r] = kNegInf;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+    for (int u = 0; u < DPL; ++u) acc[r][u] = 0.f;
   }
 
   auto tile = [&](int i, auto fast) {
@@ -1176,23 +1274,28 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[r][u] *= alpha[r];
-    const int d0 = 4 * (lane % LPV);
+      for (int u = 0; u < DPL; ++u) acc[r][u] *= alpha[r];
+    const int d0 = DPL * (lane % LPV);
 #pragma unroll
     for (int k = 0; k < TW; k += TPV) {
       const int t = warp * TW + k + lane / LPV;
       if (t < n) {
-        const uint32_t cw =
-            *reinterpret_cast<const uint32_t*>(vcs + t * HD + d0);
-        const uint32_t sgn = vss[t * (HD / 8) + (d0 >> 3)] >> (d0 & 7);
-        float vv[4];
-        dequant4<TQ, FAST>(cw, sgn, vls[t], step, vv);
         const float4 p4 = *reinterpret_cast<const float4*>(p_s + t * R);
         const float pr[R] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-        for (int r = 0; r < R; ++r)
+        for (int c = 0; c < DPL / 4; ++c) {
+          const int d = d0 + 4 * c;
+          const uint32_t cw =
+              *reinterpret_cast<const uint32_t*>(vcs + t * HD + d);
+          const uint32_t sgn = vss[t * (HD / 8) + (d >> 3)] >> (d & 7);
+          float vv[4];
+          dequant4<TQ, FAST>(cw, sgn, vls[t], step, vv);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(pr[r], vv[u], acc[r][u]);
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[r][4 * c + u] = fmaf(pr[r], vv[u], acc[r][4 * c + u]);
+        }
       }
     }
   };
@@ -1217,14 +1320,17 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < DPL; ++u)
         acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
   if (lane < LPV) {
-    const int d0 = 4 * lane;
+    const int d0 = DPL * lane;
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      *reinterpret_cast<float4*>(red + (warp * R + r) * HD + d0) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+      for (int c = 0; c < DPL / 4; ++c)
+        *reinterpret_cast<float4*>(red + (warp * R + r) * HD + d0 + 4 * c) =
+            make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                        acc[r][4 * c + 3]);
   }
 #pragma unroll
   for (int off = R; off < 32; off <<= 1)
@@ -1235,8 +1341,6 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
     for (int r = 0; r < R; ++r) m_s[r] = m_run[r];
   __syncthreads();
 
-  const int rows = min(R, rep - r0);
-  const long long slot = (long long)bg * n_split + split;
   for (int e = tid; e < rows * HD; e += kKvThreads) {
     const int r = e / HD, d = e % HD;
     float s = 0.f, l = 0.f;
@@ -1257,6 +1361,8 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   }
 }
 
+// The partials of every split combined by their maxima (flash-decoding); a
+// neutral partial (m = -2^30, l = 0, P·V = 0) weighs exp(-2^30 - max) = 0.
 __global__ void __launch_bounds__(kKvThreads)
 kvdq_combine_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml, float* __restrict__ out,
@@ -1292,20 +1398,20 @@ int sign_log_width(const KvView& v, int hd) {
 template <int HD, typename TQ>
 cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
                         const KvView& vc, float* out, float* part_acc,
-                        float* part_ml, int B, int G, int rep, int live,
-                        int n_split, int span, cudaStream_t stream) {
-  auto kernel = kvdq_partial_kernel<HD, TQ>;
+                        float* part_ml, int B, int G, int rep, const int* pos,
+                        int T, int n_split, int max_split,
+                        cudaStream_t stream) {
+  constexpr auto kernel = kvdq_partial_kernel<HD, TQ>;
   const int smem = kv_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem_once<kernel>(smem);
   if (err != cudaSuccess) return err;
   const int sw = sign_log_width(kc, HD), vw = sign_log_width(vc, HD);
   const int n_rb = (rep + kKvRows - 1) / kKvRows;
   kernel<<<dim3((unsigned)(B * G * n_rb), (unsigned)n_split), kKvThreads,
            smem, stream>>>(
       static_cast<const TQ*>(q), qst[0], qst[1], qst[2], kc, vc,
-      sw < vw ? sw : vw, out, part_acc, part_ml, G, rep, n_rb, span, live,
-      1.0f / sqrtf((float)HD), 16.0f / 254.0f);
+      sw < vw ? sw : vw, out, part_acc, part_ml, G, rep, n_rb, pos, T,
+      max_split, 1.0f / sqrtf((float)HD), 16.0f / 254.0f);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   kvdq_combine_kernel<<<(unsigned)(B * G), kKvThreads, 0, stream>>>(
@@ -1317,13 +1423,14 @@ template <typename TQ>
 cudaError_t dispatch_kvdq(const void* q, const long long* qst,
                           const KvView& kc, const KvView& vc, float* out,
                           float* part_acc, float* part_ml, int B, int G,
-                          int rep, int hd, int live, int n_split, int span,
-                          cudaStream_t s) {
+                          int rep, int hd, const int* pos, int T, int n_split,
+                          int max_split, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_kvdq<16, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
-    case 32: return launch_kvdq<32, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
-    case 64: return launch_kvdq<64, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
-    case 128: return launch_kvdq<128, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, live, n_split, span, s);
+    case 16: return launch_kvdq<16, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 32: return launch_kvdq<32, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 64: return launch_kvdq<64, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 128: return launch_kvdq<128, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 256: return launch_kvdq<256, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1331,10 +1438,9 @@ cudaError_t dispatch_kvdq(const void* q, const long long* qst,
 template <int HD, typename TQ>
 int kvdq_slots() {
   int dev = 0, sms = 0, per_sm = 0;
-  auto kernel = kvdq_partial_kernel<HD, TQ>;
+  constexpr auto kernel = kvdq_partial_kernel<HD, TQ>;
   const int smem = kv_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem_once<kernel>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1351,6 +1457,7 @@ int kvdq_slots_hd(int hd) {
     case 32: return kvdq_slots<32, TQ>();
     case 64: return kvdq_slots<64, TQ>();
     case 128: return kvdq_slots<128, TQ>();
+    case 256: return kvdq_slots<256, TQ>();
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -1423,26 +1530,30 @@ extern "C" {
 // the output) are bfloat16, else float32.
 
 // B10.  q (B, S, Hq, hd), k/v (B, S, G, hd), o (B, S, Hq, hd); hd in
-// {16, 32, 64, 128}; Hq a multiple of G.
+// {16, 32, 64, 128, 256}; Hq a multiple of G; window W > 0 masks the keys
+// W or more below a row (i - j >= W), 0 none.
 int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
                         const long long* k_st, const void* v,
                         const long long* v_st, void* o, const long long* o_st,
                         int batch, int seq, int heads, int kv_heads, int hd,
-                        int causal, int bf16, void* stream) {
-  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0)
+                        int causal, int window, int bf16, void* stream) {
+  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
+      window < 0)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_flash(bf16, q, q_st, k, k_st, v, v_st, o, o_st, batch,
-                             seq, heads, kv_heads, hd, causal,
+                             seq, heads, kv_heads, hd, causal, window,
                              static_cast<cudaStream_t>(stream));
 }
 
 // B11.  q (B, G, rep, hd) f32 or bf16; each cache operand (B, G, T, ·):
 // codes uint8 (·, hd) with 16-byte aligned rows, signs uint8 (·, hd/8) with
 // 2-byte aligned rows, scale f32 (·, 1); out (B, G, rep, hd) f32
-// contiguous; hd in {16, 32, 64, 128}.  The tokens j < live = min(T,
-// pos + 1) go in n_split spans of `span` tokens (the last one shorter), one
-// block each for every (b, g) and block of kKvRows query rows; with more
-// than one split, part_acc (B·G, n_split, rep, hd) and part_ml (B·G,
+// contiguous; hd in {16, 32, 64, 128, 256}; pos one int32 in device memory.
+// The grid is n_split blocks deep for every (b, g) and block of kKvRows
+// query rows; each block reads pos and takes its span of the tokens j <
+// live = min(T, pos + 1) by splits' rule with at most max_split spans (a
+// grid of max(1, min(max_split, ceil(T / tile))) serves every pos); with
+// more than one split, part_acc (B·G, n_split, rep, hd) and part_ml (B·G,
 // n_split, rep, 2) are f32 scratch.
 int kv_dequant_decode_attention_fwd(
     const void* q, const long long* q_st, const void* ck, const long long* ck_st,
@@ -1450,23 +1561,23 @@ int kv_dequant_decode_attention_fwd(
     const long long* lk_st, const void* cv, const long long* cv_st,
     const void* sv, const long long* sv_st, const void* lv,
     const long long* lv_st, float* out, float* part_acc, float* part_ml,
-    int batch, int kv_heads, int rep, int hd, int live, int n_split,
-    int span, int bf16, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || rep <= 0 || live <= 0 || span <= 0 ||
-      hd < 16 || hd > 128 || (hd & (hd - 1)) || n_split <= 0 ||
-      (long long)(n_split - 1) * span >= live ||
-      (long long)n_split * span < live)
+    int batch, int kv_heads, int rep, int hd, const int* pos, int T,
+    int n_split, int max_split, int bf16, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || rep <= 0 || T <= 0 || hd < 16 ||
+      hd > 256 || (hd & (hd - 1)) || n_split <= 0 || max_split < n_split ||
+      pos == nullptr || (n_split > 1 && (part_acc == nullptr ||
+                                         part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   const KvView kc = make_view(ck, ck_st, sk, sk_st, lk, lk_st);
   const KvView vc = make_view(cv, cv_st, sv, sv_st, lv, lv_st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? (int)dispatch_kvdq<__nv_bfloat16>(q, q_st, kc, vc, out,
                                                   part_acc, part_ml, batch,
-                                                  kv_heads, rep, hd, live,
-                                                  n_split, span, s)
+                                                  kv_heads, rep, hd, pos, T,
+                                                  n_split, max_split, s)
               : (int)dispatch_kvdq<float>(q, q_st, kc, vc, out, part_acc,
                                           part_ml, batch, kv_heads, rep, hd,
-                                          live, n_split, span, s);
+                                          pos, T, n_split, max_split, s);
 }
 
 // Blocks of B11's partial kernel the card runs at once (SMs times blocks an
@@ -1475,7 +1586,7 @@ int kv_dequant_decode_attention_fwd(
 // block.
 int kv_dequant_decode_attention_slots(int hd, int bf16, int* tile,
                                       int* rows) {
-  *tile = kKvTile;
+  *tile = kv_tile(hd);
   *rows = kKvRows;
   return bf16 ? kvdq_slots_hd<__nv_bfloat16>(hd) : kvdq_slots_hd<float>(hd);
 }

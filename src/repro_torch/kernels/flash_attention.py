@@ -1,14 +1,20 @@
-"""Blockwise online-softmax (flash) attention, causal or full.
+"""Blockwise online-softmax (flash) attention, causal or full, with an
+optional sliding window.
 
 The port of the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``:
 
 * ``flash_attention(q, k, v, causal=True)`` — the TPU signature, q/k/v
   (BH, S, hd) -> (BH, S, hd);
-* ``flash_attention_gqa(q, k, v, causal=True)`` — the same kernel in the
-  model's layout, q (B, S, Hq, hd) and k/v (B, S, G, hd) -> (B, S, Hq, hd),
-  query head h reading kv head h // (Hq / G): the attention core of
-  ``models.attention.attention_full``.
+* ``flash_attention_gqa(q, k, v, causal=True, window=0)`` — the same
+  kernel in the model's layout, q (B, S, Hq, hd) and k/v (B, S, G, hd) ->
+  (B, S, Hq, hd), query head h reading kv head h // (Hq / G): the attention
+  core of ``models.attention.attention_full``.
+
+``window`` W > 0 also masks i - j >= W, the sliding window of gemma3's
+local layers that ``repro`` applies in XLA around its own attention
+(``repro/models/attention.py:110-112``; the Pallas kernel has none); the
+kernel skips the K tiles wholly outside every row's window.
 
 Both take float32 or bfloat16 (q, k and v alike) and return q's dtype;
 the sums are f32, and for bf16 inputs the probabilities are rounded to
@@ -33,7 +39,7 @@ __all__ = ["flash_attention", "flash_attention_gqa", "HEAD_DIMS",
            "launch_counts", "reset_launch_counts"]
 
 #: head widths the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel name -> launches since the last reset
@@ -54,7 +60,7 @@ def _kernels() -> dict:
         _fns = build.bind("attention", {
             "flash_attention": ("flash_attention_fwd",
                                 [p, st, p, st, p, st, p, st, i32, i32, i32,
-                                 i32, i32, i32, i32, p]),
+                                 i32, i32, i32, i32, i32, p]),
         }, "attention_cuda_error_string")
     return _fns
 
@@ -65,7 +71,7 @@ def _strides(t: torch.Tensor):
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, dev: torch.device) -> torch.Tensor:
+            causal: bool, window: int, dev: torch.device) -> torch.Tensor:
     """q (B, S, Hq, hd), k/v (B, S, G, hd) on ``dev`` -> (B, S, Hq, hd)."""
     B, S, Hq, hd = q.shape
     G = k.shape[2]
@@ -83,7 +89,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fns["flash_attention"](
             q.data_ptr(), _strides(q), k.data_ptr(), _strides(k),
             v.data_ptr(), _strides(v), out.data_ptr(), _strides(out), B, S,
-            Hq, G, hd, int(causal), int(q.dtype == torch.bfloat16),
+            Hq, G, hd, int(causal), window, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
@@ -104,13 +110,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev is None:
         return flash_attention_ref(q, k, v, causal).to(q.dtype)
     return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal,
-                   dev)[:, :, 0]
+                   0, dev)[:, :, 0]
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
     """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype,
-    query head h attending with kv head h // (Hq / G)."""
+    query head h attending with kv head h // (Hq / G); ``window`` > 0
+    masks the keys ``window`` or more below the query (i - j >= W)."""
+    if isinstance(window, bool) or int(window) != window or window < 0:
+        raise ValueError(f"flash_attention_gqa: window must be an int >= 0, "
+                         f"got {window!r}")
+    window = int(window)
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
             or q.shape[2] % k.shape[2]):
@@ -119,5 +131,5 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(B, S, Hq, hd) x (B, S, G, hd) with G | Hq")
     dev = _cuda_device((q, k, v), "flash_attention_gqa")
     if dev is None:
-        return flash_attention_gqa_ref(q, k, v, causal)
-    return _launch(q, k, v, causal, dev)
+        return flash_attention_gqa_ref(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window, dev)

@@ -16,7 +16,11 @@ scale; the kernel dequantizes in registers as ``|x| = exp2(scale -
   (U, B, T, G, ·) cache, read in place -> (B, 1, Hq, hd) f32: the attention
   core of ``serving.kvcache.compressed_attention_decode``.
 
-``pos`` is a host int (no device sync).  q may be float32 or bfloat16; for
+``pos`` is a 0-d int32 tensor on q's device (a host int >= 0 is taken
+too, and filled into one): the kernel reads it from device memory, and its
+grid follows the cache length T alone, so one launch serves every step of
+a captured decode (``serving.step.CapturedDecodeStep``).  Nothing here
+reads pos's value on the host.  q may be float32 or bfloat16; for
 a bfloat16 q the dequantized K/V and the probabilities are rounded to
 bfloat16 before their products (sums in f32), as ``repro``'s serving
 decode rounds them (the kernel rounds the unnormalised probabilities,
@@ -27,6 +31,13 @@ a CUDA tensor both launch the hand-written Hopper kernel in
 tensor they run the plain versions in :mod:`.ref`.  Any other device
 raises — there is no fallback from the kernel.  :data:`launch_counts`
 counts CUDA launches (one per call).
+
+A local (sliding-window) layer needs no window here: its cache holds
+min(max_len, W) slots (``models.transformer.init_decode_cache``), so either
+it is a ring (T == W, every slot in the window once pos >= T, which live =
+min(T, pos + 1) already says) or it is shorter than W, where pos - j < W
+never binds.  The ``window`` argument only checks that (a windowed cache
+longer than W raises).
 """
 from __future__ import annotations
 
@@ -41,8 +52,8 @@ from .ref import (KV_RANGE, KV_STEP, kv_dequant_decode_attention_gqa_ref,
                   kv_dequant_decode_attention_ref)
 
 __all__ = ["kv_dequant_decode_attention", "kv_dequant_decode_attention_gqa",
-           "KV_RANGE", "KV_STEP", "splits", "grid", "launch_counts",
-           "reset_launch_counts"]
+           "KV_RANGE", "KV_STEP", "splits", "kernel_span", "grid_splits",
+           "grid", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> launches since the last reset
 launch_counts: dict[str, int] = {"kv_dequant_decode_attention": 0}
@@ -65,7 +76,8 @@ def _kernels() -> dict:
         _fns = build.bind("attention", {
             "kv_dequant_decode_attention": (
                 "kv_dequant_decode_attention_fwd",
-                [p, st] + [p, st] * 6 + [p, p, p] + [i32] * 8 + [p]),
+                [p, st] + [p, st] * 6 + [p, p, p] + [i32] * 4 + [p]
+                + [i32] * 4 + [p]),
             "slots": ("kv_dequant_decode_attention_slots",
                       [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]),
         }, "attention_cuda_error_string")
@@ -85,6 +97,25 @@ def splits(blocks: int, live: int, slots: int, tile: int
     return -(-live // span), span
 
 
+def kernel_span(split: int, live: int, max_split: int, tile: int
+                ) -> tuple[int, int]:
+    """``[s0, s1)`` of grid split ``split`` as the kernel finds it from
+    ``pos`` (``live = min(T, pos + 1)``): :func:`splits`' spans with at most
+    ``max_split`` of them (``slots // blocks``); empty (s1 = s0) for a split
+    past the last span, which writes a neutral partial."""
+    n = max(1, min(max_split, -(-live // tile)))
+    span = -(-(-(-live // n)) // tile) * tile
+    s0 = split * span
+    return s0, max(s0, min(live, s0 + span))
+
+
+def grid_splits(blocks: int, T: int, slots: int, tile: int) -> int:
+    """Splits of the launch grid for a cache of ``T`` tokens, whatever pos:
+    :func:`splits`' n at live = T.  (n_split itself is not monotone in live:
+    (64, 640, 264, 128) gives 3 spans of 256, live 512 four of 128; n is.)"""
+    return max(1, min(slots // blocks, -(-T // tile)))
+
+
 def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int
              ) -> tuple[int, int, int]:
     key = (id(fns["slots"]), dev.index, hd, bf16)
@@ -99,16 +130,22 @@ def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int
     return _grids[key]
 
 
-def grid(heads: int, rep: int, hd: int, live: int, q_dtype: torch.dtype,
-         dev: torch.device) -> tuple[int, int, int]:
-    """``(n_split, span, tile)`` of the kernel's launch on CUDA device
-    ``dev`` for ``heads`` (batch, kv head) pairs of ``rep`` query rows of
-    ``hd`` dims in ``q_dtype`` over ``live`` cached tokens: the spans of
-    :func:`splits` and the tokens a tile, both as the built kernel takes
-    them."""
+def _blocks_slots_tile(heads: int, rep: int, hd: int, q_dtype: torch.dtype,
+                       dev: torch.device) -> tuple[int, int, int]:
     slots, tile, rows = _grid_of(_kernels(), dev, hd,
                                  int(q_dtype == torch.bfloat16))
-    return splits(heads * -(-rep // rows), live, slots, tile) + (tile,)
+    return heads * -(-rep // rows), slots, tile
+
+
+def grid(heads: int, rep: int, hd: int, live: int, q_dtype: torch.dtype,
+         dev: torch.device) -> tuple[int, int, int]:
+    """``(n_split, span, tile)`` the kernel takes on CUDA device ``dev``
+    for ``heads`` (batch, kv head) pairs of ``rep`` query rows of ``hd``
+    dims in ``q_dtype`` over ``live`` cached tokens: the spans of
+    :func:`splits` it finds from pos and the tokens a tile, both as the
+    built kernel takes them."""
+    blocks, slots, tile = _blocks_slots_tile(heads, rep, hd, q_dtype, dev)
+    return splits(blocks, live, slots, tile) + (tile,)
 
 
 def _strides(t: torch.Tensor):
@@ -116,9 +153,14 @@ def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2))
 
 
-def _launch(q: torch.Tensor, cache: tuple, pos: int,
-            dev: torch.device) -> torch.Tensor:
-    """q (B, G, rep, hd); cache leaves (B, G, T, ·) -> (B, G, rep, hd) f32."""
+def _launch(q: torch.Tensor, cache: tuple, pos: torch.Tensor,
+            dev: torch.device, grid_live: int | None = None) -> torch.Tensor:
+    """q (B, G, rep, hd); cache leaves (B, G, T, ·) -> (B, G, rep, hd) f32.
+
+    The grid is :func:`grid_splits` of T, or (``grid_live``, a host int
+    that must equal min(T, pos + 1)) :func:`splits`' n_split at that live,
+    the grid a host-int pos gave before pos moved to device memory: for a
+    comparison of the two on the card."""
     B, G, rep, hd = q.shape
     T = cache[0].shape[2]
     if hd not in HEAD_DIMS:
@@ -140,8 +182,9 @@ def _launch(q: torch.Tensor, cache: tuple, pos: int,
     if q.stride(3) != 1:
         raise ValueError("kv_dequant_decode_attention: q's head axis must "
                          "be contiguous")
-    live = min(T, pos + 1)
-    n_split, span, _ = grid(B * G, rep, hd, live, q.dtype, dev)
+    blocks, slots, tile = _blocks_slots_tile(B * G, rep, hd, q.dtype, dev)
+    n_split = (grid_splits(blocks, T, slots, tile) if grid_live is None
+               else splits(blocks, grid_live, slots, tile)[0])
     fns = _kernels()
     out = torch.empty((B, G, rep, hd), dtype=torch.float32, device=dev)
     part_acc = part_ml = None
@@ -158,7 +201,8 @@ def _launch(q: torch.Tensor, cache: tuple, pos: int,
             q.data_ptr(), _strides(q), *args, out.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(), B, G, rep, hd,
-            live, n_split, span, int(q.dtype == torch.bfloat16),
+            pos.data_ptr(), T, n_split, max(1, slots // blocks),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kv_dequant_decode_attention kernel launch "
@@ -168,20 +212,39 @@ def _launch(q: torch.Tensor, cache: tuple, pos: int,
     return out
 
 
-def _check_pos(pos) -> int:
-    if isinstance(pos, torch.Tensor) or int(pos) != pos or pos < 0:
+def _check_pos(pos, q: torch.Tensor) -> torch.Tensor:
+    """``pos`` as a 0-d int32 tensor on q's device (its value unread)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int32 or \
+                pos.device != q.device:
+            raise ValueError(f"kv_dequant_decode_attention: pos must be a "
+                             f"host int >= 0 or a 0-d int32 tensor on "
+                             f"{q.device}, got {pos.dim()}-d {pos.dtype} on "
+                             f"{pos.device}")
+        return pos
+    if isinstance(pos, bool) or int(pos) != pos or pos < 0:
         raise ValueError(f"kv_dequant_decode_attention: pos must be a host "
-                         f"int >= 0, got {pos!r}")
-    return int(pos)
+                         f"int >= 0 or a 0-d int32 tensor, got {pos!r}")
+    return torch.full((), int(pos), dtype=torch.int32, device=q.device)
+
+
+def _check_window(window: int, T: int) -> None:
+    if window and T > window:
+        raise ValueError(f"kv_dequant_decode_attention: a cache of {T} slots "
+                         f"for a window of {window}: a windowed layer's "
+                         "cache must hold at most W slots (a ring of W, or "
+                         "fewer), as B11 applies no window mask")
 
 
 def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
-                                signs_v, scale_v, pos) -> torch.Tensor:
+                                signs_v, scale_v, pos, *, window: int = 0
+                                ) -> torch.Tensor:
     """q (BG, rep, hd); cache leaves (BG, T, ·) -> (BG, rep, hd) f32.
 
-    ``pos``: the last valid cache index (causal mask j <= pos).
+    ``pos``: the last valid cache index (causal mask j <= pos), a 0-d
+    int32 tensor on q's device or a host int.
     """
-    pos = _check_pos(pos)
+    pos = _check_pos(pos, q)
     cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
     BG, rep, hd = q.shape
     T = codes_k.shape[1]
@@ -190,6 +253,7 @@ def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
         raise ValueError(f"kv_dequant_decode_attention: q {tuple(q.shape)} "
                          f"and cache {[tuple(t.shape) for t in cache]} do "
                          f"not form (BG, rep, hd) x (BG, T, hd | hd/8 | 1)")
+    _check_window(window, T)
     dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention")
     if dev is None:
         return kv_dequant_decode_attention_ref(q, *cache, pos)
@@ -198,11 +262,14 @@ def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
 
 
 def kv_dequant_decode_attention_gqa(q, codes_k, signs_k, scale_k, codes_v,
-                                    signs_v, scale_v, pos) -> torch.Tensor:
+                                    signs_v, scale_v, pos, *, window: int = 0
+                                    ) -> torch.Tensor:
     """q (B, 1, Hq, hd); one layer's cache leaves (B, T, G, ·) ->
     (B, 1, Hq, hd) f32, query head h attending with kv head h // (Hq / G).
+    ``window``: the layer's sliding window (0 none), only checked against
+    T (see the module note).
     """
-    pos = _check_pos(pos)
+    pos = _check_pos(pos, q)
     cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
     B, one, Hq, hd = q.shape
     T, G = codes_k.shape[1], codes_k.shape[2]
@@ -213,6 +280,7 @@ def kv_dequant_decode_attention_gqa(q, codes_k, signs_k, scale_k, codes_v,
                          f"{tuple(q.shape)} and cache "
                          f"{[tuple(t.shape) for t in cache]} do not form "
                          "(B, 1, Hq, hd) x (B, T, G, hd | hd/8 | 1), G | Hq")
+    _check_window(window, T)
     dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention_gqa")
     if dev is None:
         return kv_dequant_decode_attention_gqa_ref(q, *cache, pos)

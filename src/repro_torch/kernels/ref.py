@@ -35,7 +35,8 @@ __all__ = ["gemm_planes_ref", "gemm_planes_batch_ref", "gemm_planes_mid_ref",
            "flash_attention_ref", "flash_attention_gqa_ref",
            "kv_dequant_ref", "kv_dequant_decode_attention_ref",
            "kv_dequant_decode_attention_gqa_ref",
-           "kv_dequant_decode_attention_tiled_ref", "NEG_INF", "KV_RANGE",
+           "kv_dequant_decode_attention_tiled_ref", "kv_combine_ref",
+           "NEG_INF", "KV_RANGE",
            "KV_STEP", "KV_CODE_MAX"]
 
 CODE_MAX = 65535
@@ -291,22 +292,26 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
     """q/k/v (..., S, hd) -> (..., S, hd) f32, masked to j <= i when
-    ``causal`` (``tests/test_kernels_flash.py``'s oracle).  For bf16 inputs
-    the probabilities are rounded to bf16 before P·V, as
-    ``repro.models.attention._gqa_out`` rounds them (and the kernel's bf16
-    P·V on the tensor cores does)."""
+    ``causal`` (``tests/test_kernels_flash.py``'s oracle) and to i - j <
+    ``window`` when it is > 0 (``repro.models.attention.attention_full``'s
+    sliding window).  For bf16 inputs the probabilities are rounded to bf16
+    before P·V, as ``repro.models.attention._gqa_out`` rounds them (and the
+    kernel's bf16 P·V on the tensor cores does)."""
     S = q.shape[-2]
-    mask = (torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-            if causal else None)
+    i = torch.arange(S, device=q.device)
+    d = i[:, None] - i[None, :]
+    mask = d >= 0 if causal else None
+    if window:
+        mask = d < window if mask is None else mask & (d < window)
     p_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else None
     return _attend(q.float(), k.float(), v.float(), mask, p_dtype)
 
 
 def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, causal: bool = True
-                            ) -> torch.Tensor:
+                            v: torch.Tensor, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
     """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype;
     query head h = g·rep + r reads kv head g (bf16: probabilities rounded
     to bf16 before P·V, as in :func:`flash_attention_ref`)."""
@@ -315,7 +320,7 @@ def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
     qh = q.permute(0, 2, 1, 3).reshape(B, G, Hq // G, S, hd)
     kh = k.permute(0, 2, 1, 3).unsqueeze(2)               # (B, G, 1, S, hd)
     vh = v.permute(0, 2, 1, 3).unsqueeze(2)
-    out = flash_attention_ref(qh, kh, vh, causal)          # (B, G, rep, S, hd)
+    out = flash_attention_ref(qh, kh, vh, causal, window)  # (B, G, rep, S, hd)
     return out.reshape(B, Hq, S, hd).permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -337,7 +342,9 @@ def kv_dequant_ref(codes: torch.Tensor, signs: torch.Tensor,
 def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
                                     signs_v, scale_v, pos) -> torch.Tensor:
     """q (..., rep, hd); cache leaves (..., T, ·) -> (..., rep, hd) f32,
-    attending to cache slots j <= pos.  For a bf16 q the dequantized K/V
+    attending to cache slots j <= pos (a host int or a 0-d tensor on q's
+    device, whose value is not read on the host).  For a bf16 q the
+    dequantized K/V
     and the probabilities are rounded to bf16 before their products (sums
     in f32), as ``repro``'s serving decode dequantizes the cache to the
     model's dtype and ``_gqa_out`` rounds the probabilities to v's."""
@@ -348,17 +355,26 @@ def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
         k, v = k.bfloat16().float(), v.bfloat16().float()
         p_dtype = torch.bfloat16
     T = codes_k.shape[-2]
-    mask = torch.arange(T, device=q.device) <= int(pos)
+    mask = torch.arange(T, device=q.device) <= pos
     return _attend(q.float(), k, v, mask, p_dtype)
 
 
 def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
-                                        codes_v, signs_v, scale_v, pos
-                                        ) -> torch.Tensor:
+                                        codes_v, signs_v, scale_v, pos, *,
+                                        window: int = 0) -> torch.Tensor:
     """q (B, 1, Hq, hd); cache leaves (B, T, G, ·) -> (B, 1, Hq, hd) f32
-    (bf16 q: rounded as in :func:`kv_dequant_decode_attention_ref`)."""
+    (bf16 q: rounded as in :func:`kv_dequant_decode_attention_ref`).
+    ``window``, as the kernel's wrapper takes it, applies no mask: a
+    windowed layer's cache holds at most W slots, a ring or shorter, where
+    j <= pos is the window's mask (``kernels/kv_dequant_attention.py``);
+    a longer one raises."""
     B, _, Hq, hd = q.shape
     G = codes_k.shape[2]
+    if window and codes_k.shape[1] > window:
+        raise ValueError(f"kv_dequant_decode_attention: a cache of "
+                         f"{codes_k.shape[1]} slots for a window of {window}"
+                         f": a windowed layer's cache must hold at most W "
+                         f"slots")
     qh = q[:, 0].reshape(B, G, Hq // G, hd)
     cache = [t.transpose(1, 2) for t in (codes_k, signs_k, scale_k, codes_v,
                                          signs_v, scale_v)]
@@ -409,7 +425,16 @@ def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
         ms.append(m)
         ls.append(l)
         accs.append(acc)
-    mx = torch.stack(ms).amax(0)
+    return kv_combine_ref(ms, ls, accs).float()
+
+
+def kv_combine_ref(ms, ls, accs) -> torch.Tensor:
+    """The spans' partials (running max m, sum l, P·V acc; one each a
+    span) combined by their maxima, as B11's combine kernel does: the sum
+    of acc·exp(m - max) over the sum of l·exp(m - max), floored at 1e-30.
+    A neutral partial (m = NEG_INF, l = 0, acc = 0: a span past the live
+    tokens) has weight exp(NEG_INF - max) = 0 and drops out."""
+    mx = torch.stack(list(ms)).amax(0)
     w = [torch.exp(m - mx).double() for m in ms]
     return (sum(a * x for a, x in zip(accs, w))
-            / sum(l * x for l, x in zip(ls, w))).float()
+            / sum(l * x for l, x in zip(ls, w)).clamp(min=1e-30))

@@ -1,21 +1,27 @@
 """GQA attention: full-sequence (train/prefill) and decode-with-cache.
 
-The port of ``repro/models/attention.py`` for full attention layers: GQA
+The port of ``repro/models/attention.py`` for self-attention layers: GQA
 group sizes from MQA (granite kv=1) to MHA, qk-norm (qwen3), QKV bias
-(qwen1.5).  ``attention_full``'s attention core is the flash-attention
-kernel (``kernels/flash_attention.py``, B10), which sums in f32, rounds
-the probabilities to bf16 for P·V as ``_gqa_out`` does, and never
-materialises the scores; the raw-cache decode stays plain torch, as it is
-plain XLA in the JAX package.  Softmax accumulates in f32;
-activations are bf16.
+(qwen1.5), sliding windows (gemma3's local layers) with ring caches.
+``attention_full``'s attention core is the flash-attention kernel
+(``kernels/flash_attention.py``, B10), which sums in f32, rounds the
+probabilities to bf16 for P·V as ``_gqa_out`` does, never materialises the
+scores, and applies the window itself; ``cfg.banded_local_attn`` takes the
+same call (``repro``'s ``_banded_window_attention`` computes the same
+function block-banded, to bound XLA's score buffers, which the kernel never
+has).  The raw-cache decode stays plain torch, as it is plain XLA in the
+JAX package.  Softmax accumulates in f32; activations are bf16.
 
-Not ported yet (they raise ``NotImplementedError``): sliding windows, the
-banded local attention and ring caches (ROADMAP A12b), sequence-parallel
+Not ported yet (they raise ``NotImplementedError``): sequence-parallel
 attention (A12g) and cross-attention (A12e).
 
 Caches are written in place: ``update_cache`` stores the new entries into
 the given (view of the stacked) cache tensors and returns them, where the
-JAX package returns updated copies.
+JAX package returns updated copies.  Decode takes ``pos`` as a 0-d int32
+tensor on the activations' device (``transformer.forward_decode`` makes it
+from a host int): RoPE, the cache slot and the masks come from it on the
+device, so a decode step makes no host sync and can be captured as one CUDA
+graph (``serving.step.CapturedDecodeStep``).
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ from .config import ModelConfig
 from .layers import dense_init, rms_norm, rope, rope_cos_sin
 
 __all__ = ["init_attn_params", "attention_full", "attention_decode",
-           "attention_cross", "init_cache", "update_cache"]
+           "attention_cross", "init_cache", "update_cache", "write_seq",
+           "decode_slot", "decode_mask", "rope_at"]
 
 
 def init_attn_params(gen, cfg: ModelConfig, dtype=torch.bfloat16,
@@ -92,21 +99,14 @@ def _gqa_out(probs, v, cfg: ModelConfig):
     return out.reshape(B, S, G * rep * v.shape[-1])
 
 
-def _unported_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP A12b)")
-
-
 def attention_full(x, prm, cfg: ModelConfig, positions, *,
                    window: int = 0, causal: bool = True):
     """Train/prefill self-attention. Returns (out, (k, v)) for caching.
 
     ``positions`` is the (S,) vector 0..S-1 every caller passes; the causal
-    mask is by sequence index, which equals the JAX package's mask by
-    position for it.
+    and window masks are by sequence index, which equals the JAX package's
+    masks by position for it.  ``window`` W > 0 keeps i - j < W.
     """
-    _unported_window(window)
     if cfg.seq_parallel_attn:
         raise NotImplementedError(
             "sequence-parallel attention is not ported yet (ROADMAP A12g)")
@@ -118,7 +118,7 @@ def attention_full(x, prm, cfg: ModelConfig, positions, *,
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
     q = rope(q, cos, sin)
     k = rope(k, cos, sin)
-    out = flash_attention_gqa(q, k, v, causal=causal)      # (B,S,Hq,hd)
+    out = flash_attention_gqa(q, k, v, causal=causal, window=window)
     return out.reshape(x.shape[0], S, -1) @ prm["wo"], (k, v)
 
 
@@ -132,38 +132,78 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def update_cache(cache_k, cache_v, k, v, pos: int):
-    """Write (B,S,G,hd) at sequence offset ``pos`` (a host int), in place;
-    returns the two cache tensors."""
-    S, T = k.shape[1], cache_k.shape[1]
+def write_seq(targets, values, pos) -> None:
+    """Write each (B, S, ...) value into its (B, T, ...) target at
+    sequence offset ``pos``, in place: a host int (range-checked) as a
+    slice, a 0-d tensor on the targets' device with ``index_copy_`` along
+    the sequence axis (no host sync)."""
+    S, T = values[0].shape[1], targets[0].shape[1]
+    if isinstance(pos, torch.Tensor):
+        idx = pos.long() + torch.arange(S, device=pos.device)
+        for tgt, val in zip(targets, values):
+            tgt.index_copy_(1, idx, val.to(tgt.dtype))
+        return
     if not 0 <= pos <= T - S:
         raise ValueError(f"update_cache: {S} entries at {pos} do not fit a "
                          f"cache of {T}")
-    cache_k[:, pos:pos + S] = k
-    cache_v[:, pos:pos + S] = v
+    for tgt, val in zip(targets, values):
+        tgt[:, pos:pos + S] = val
+
+
+def update_cache(cache_k, cache_v, k, v, pos):
+    """Write (B,S,G,hd) at sequence offset ``pos`` (a host int, or a 0-d
+    tensor on the cache's device) in place; returns the two cache
+    tensors."""
+    write_seq((cache_k, cache_v), (k, v), pos)
     return cache_k, cache_v
 
 
-def attention_decode(x, prm, cfg: ModelConfig, cache_k, cache_v, pos: int,
-                     *, window: int = 0):
-    """One-token decode: x (B,1,d) against cache (B,T,G,hd) at offset pos
-    (a host int); the new entry is written into the cache in place.
+def decode_slot(pos: torch.Tensor, T: int, window: int) -> torch.Tensor:
+    """The cache slot of the token at ``pos`` (0-d device tensor): pos %
+    T in ring mode (a windowed layer whose cache is exactly W slots), else
+    pos."""
+    return pos % T if window and T == window else pos
+
+
+def decode_mask(pos: torch.Tensor, T: int, window: int) -> torch.Tensor:
+    """(T,) bool: the slots a decode step at ``pos`` attends to, as
+    ``repro``'s ``attention_decode``: in ring mode every written slot (j <=
+    pos, or all once pos >= T; keys are RoPE'd, so slot order never
+    matters), else j <= pos within the window."""
+    j = torch.arange(T, device=pos.device)
+    if window and T == window:
+        return (j <= pos) | (pos >= T)
+    mask = j <= pos
+    if window:
+        mask = mask & (pos - j < window)
+    return mask
+
+
+def rope_at(q, k, pos: torch.Tensor, cfg: ModelConfig):
+    """q and k of one decoded token rotated to position ``pos`` (0-d device
+    tensor), the (B, 1) positions as ``torch.full`` of a host int gives."""
+    posv = pos.reshape(1, 1).expand(q.shape[0], 1)
+    cos, sin = rope_cos_sin(posv, cfg.hd, cfg.rope_theta)
+    return rope(q, cos, sin), rope(k, cos, sin)
+
+
+def attention_decode(x, prm, cfg: ModelConfig, cache_k, cache_v, pos, *,
+                     window: int = 0):
+    """One-token decode: x (B,1,d) against cache (B,T,G,hd) at ``pos`` (a
+    0-d int32 tensor on x's device); the new entry is written into the
+    cache in place, at slot pos % T in ring mode (``window`` and T == W, as
+    ``repro``'s RING MODE: a local layer's cache stays O(W)).
 
     Returns (out, cache_k, cache_v).
     """
-    _unported_window(window)
-    B = x.shape[0]
     T = cache_k.shape[1]
     q, k, v = _project_qkv(x, prm, cfg)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_cos_sin(posv, cfg.hd, cfg.rope_theta)
-    q = rope(q, cos, sin)
-    k = rope(k, cos, sin)
-    cache_k, cache_v = update_cache(cache_k, cache_v, k, v, pos)
+    q, k = rope_at(q, k, pos, cfg)
+    cache_k, cache_v = update_cache(cache_k, cache_v, k, v,
+                                    decode_slot(pos, T, window))
 
     scores = _gqa_scores(q, cache_k, cfg)                 # (B,G,r,1,T)
-    mask = torch.arange(T, device=x.device) <= pos
-    scores = torch.where(mask, scores, NEG_INF)
+    scores = torch.where(decode_mask(pos, T, window), scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, cache_v, cfg) @ prm["wo"]
     return out, cache_k, cache_v

@@ -1,7 +1,8 @@
 """Decoder-only LM assembly over a layer-kind pattern.
 
-The port of ``repro/models/transformer.py`` for ``"attn"`` layers (dense
-and GQA decoders such as qwen3, granite and qwen1.5).  Three modes:
+The port of ``repro/models/transformer.py`` for ``"attn"`` and
+``"attn_local"`` layers (dense and GQA decoders such as qwen3, granite and
+qwen1.5; gemma3's 5 sliding-window : 1 global pattern).  Three modes:
 
   forward_train   tokens -> logits                     (forward only)
   forward_prefill tokens -> logits_last + caches       (serve prefill)
@@ -10,15 +11,19 @@ and GQA decoders such as qwen3, granite and qwen1.5).  Three modes:
 Parameters and caches keep the JAX package's pytree layout — ``{"units":
 (...), "rem": (...)}``, each unit leaf stacked over the pattern units, an
 attention cache (U, B, T, G, hd) — so weights and caches cross packages
-leaf by leaf (``interop.lm_params_from_numpy``).  ``lax.scan`` over the
+leaf by leaf (``interop.lm_params_from_numpy``).  A local layer's cache
+holds min(max_len, W) slots, a ring once the prompt is longer than W
+(``repro``'s layout: position p in slot p % W).  ``lax.scan`` over the
 units becomes a Python loop over views of the stacked tensors; decode
 writes the new cache entries into those views in place and returns the
-same cache.
+same cache.  Decode's ``pos`` becomes one 0-d int32 tensor on the device
+at the top of ``forward_decode``, so no layer reads it on the host: the
+step is one CUDA graph when captured (``serving.step``), as ``repro``'s is
+one XLA program under ``jax.jit`` with pos traced.
 
-Not ported yet (``NotImplementedError``): the layer kinds ``attn_local``
-(A12b), ``cross_attn`` (A12e), ``rglru``, ``mlstm`` and ``slstm`` (A12d),
-MoE feed-forward (A12c), encoder-decoder models (A12e) and ``loss_fn``
-(training, A12f).
+Not ported yet (``NotImplementedError``): the layer kinds ``cross_attn``
+(A12e), ``rglru``, ``mlstm`` and ``slstm`` (A12d), MoE feed-forward
+(A12c), encoder-decoder models (A12e) and ``loss_fn`` (training, A12f).
 """
 from __future__ import annotations
 
@@ -31,10 +36,12 @@ from .layers import dense_init, rms_norm
 from .mlp import init_mlp_params, mlp
 
 __all__ = ["init_params", "forward_train", "forward_prefill",
-           "forward_decode", "init_decode_cache"]
+           "forward_decode", "init_decode_cache", "decode_pos",
+           "check_decode_pos"]
 
-_UNPORTED_KINDS = {"attn_local": "A12b", "cross_attn": "A12e",
-                   "rglru": "A12d", "mlstm": "A12d", "slstm": "A12d"}
+ATTN_KINDS = ("attn", "attn_local")
+_UNPORTED_KINDS = {"cross_attn": "A12e", "rglru": "A12d", "mlstm": "A12d",
+                   "slstm": "A12d"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -48,7 +55,7 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} is not ported yet "
                 f"(ROADMAP {_UNPORTED_KINDS[kind]})")
-        if kind != "attn":
+        if kind not in ATTN_KINDS:
             raise ValueError(kind)
     if cfg.moe is not None:
         raise NotImplementedError(
@@ -57,6 +64,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _has_mlp(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """Window for local kinds (0 = full)."""
+    return cfg.sliding_window if kind == "attn_local" else 0
+
+
+def _cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """Slots of a layer's cache: a local layer's ring holds at most W."""
+    W = _window(cfg, kind)
+    return min(max_len, W) if W else max_len
 
 
 def _index(tree, u: int):
@@ -121,25 +139,35 @@ def _ffn(cfg: ModelConfig, x, prm):
     return x
 
 
-def _apply_layer_full(cfg: ModelConfig, x, prm, positions, cache):
+def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions,
+                      cache):
     """Full-sequence pass; writes k/v into ``cache`` (a per-layer
-    ``{"k", "v"}`` of views, or None)."""
+    ``{"k", "v"}`` of views, or None): from slot 0, or for a prompt longer
+    than a local layer's ring its last Tc positions p at slots p % Tc."""
+    W = _window(cfg, kind)
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
-    mix, (k, v) = A.attention_full(h, prm["attn"], cfg, positions)
+    mix, (k, v) = A.attention_full(h, prm["attn"], cfg, positions, window=W)
     if cache is not None:
-        A.update_cache(cache["k"], cache["v"], k, v, 0)
+        S, Tc = k.shape[1], cache["k"].shape[1]
+        if W and S > Tc:
+            slots = torch.arange(S - Tc, S, device=k.device) % Tc
+            cache["k"].index_copy_(1, slots, k[:, S - Tc:])
+            cache["v"].index_copy_(1, slots, v[:, S - Tc:])
+        else:
+            A.update_cache(cache["k"], cache["v"], k, v, 0)
     return _ffn(cfg, x + mix, prm)
 
 
-def _apply_layer_decode(cfg: ModelConfig, x, prm, pos: int, cache):
+def _apply_layer_decode(cfg: ModelConfig, kind: str, x, prm, pos, cache):
+    W = _window(cfg, kind)
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
     if "codes_k" in cache:           # pwrel-compressed KV (serving/kvcache)
         from ..serving import kvcache as KV
         mix, _ = KV.compressed_attention_decode(h, prm["attn"], cfg, cache,
-                                                pos)
+                                                pos, window=W)
     else:
         mix, _, _ = A.attention_decode(h, prm["attn"], cfg, cache["k"],
-                                       cache["v"], pos)
+                                       cache["v"], pos, window=W)
     return _ffn(cfg, x + mix, prm)
 
 
@@ -148,13 +176,15 @@ def _apply_layer_decode(cfg: ModelConfig, x, prm, pos: int, cache):
 # ===========================================================================
 
 def _layers(cfg: ModelConfig, params, cache):
-    """(layer params, layer cache or None) in depth order, as views."""
+    """(layer kind, layer params, layer cache or None) in depth order, as
+    views."""
     for u in range(cfg.n_units):
-        for i in range(len(cfg.pattern)):
-            yield (_index(params["units"][i], u),
+        for i, kind in enumerate(cfg.pattern):
+            yield (kind, _index(params["units"][i], u),
                    None if cache is None else _index(cache["units"][i], u))
     for i, prm in enumerate(params["rem"]):
-        yield prm, None if cache is None else cache["rem"][i]
+        yield (cfg.pattern[i], prm,
+               None if cache is None else cache["rem"][i])
 
 
 # ===========================================================================
@@ -183,8 +213,8 @@ def forward_train(cfg: ModelConfig, params, tokens, aux=None):
     check_supported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
-    for prm, _ in _layers(cfg, params, None):
-        x = _apply_layer_full(cfg, x, prm, positions, None)
+    for kind, prm, _ in _layers(cfg, params, None):
+        x = _apply_layer_full(cfg, kind, x, prm, positions, None)
     return _logits(cfg, params, x)
 
 
@@ -199,24 +229,62 @@ def forward_prefill(cfg: ModelConfig, params, tokens, aux=None,
     cache = init_decode_cache(cfg, B, max_len, params["embed"].dtype,
                               tokens.device)
     x = _embed(cfg, params, tokens)
-    for prm, c in _layers(cfg, params, cache):
-        x = _apply_layer_full(cfg, x, prm, positions, c)
+    for kind, prm, c in _layers(cfg, params, cache):
+        x = _apply_layer_full(cfg, kind, x, prm, positions, c)
     return _logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
-def forward_decode(cfg: ModelConfig, params, token, cache, pos: int,
+def decode_pos(cfg: ModelConfig, cache, pos, device) -> torch.Tensor:
+    """``pos`` as every decode layer takes it: a 0-d int32 tensor on
+    ``device``.  A host int is checked (:func:`check_decode_pos`) and
+    filled into a new tensor; a tensor must already be 0-d int32 on
+    ``device`` (its value is not read: no host sync)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.dtype != torch.int32 or \
+                pos.device != torch.device(device):
+            raise ValueError(f"forward_decode: pos must be a host int or a "
+                             f"0-d int32 tensor on {device}, got "
+                             f"{pos.dim()}-d {pos.dtype} on {pos.device}")
+        return pos
+    return torch.full((), check_decode_pos(cfg, cache, pos),
+                      dtype=torch.int32, device=device)
+
+
+def check_decode_pos(cfg: ModelConfig, cache, pos: int) -> int:
+    """A host int ``pos`` range-checked against every cache that is not a
+    ring (a local layer's cache of exactly W slots takes any pos)."""
+    if isinstance(pos, bool) or int(pos) != pos or pos < 0:
+        raise ValueError(f"forward_decode: pos must be an int >= 0, got "
+                         f"{pos!r}")
+    entries = [(kind, c, 2) for kind, c in zip(cfg.pattern, cache["units"])
+               if cfg.n_units]
+    entries += [(cfg.pattern[i], c, 1) for i, c in enumerate(cache["rem"])]
+    for kind, c, seq_axis in entries:
+        T = next(iter(c.values())).shape[seq_axis]
+        W = _window(cfg, kind)
+        if not (W and T == W) and pos >= T:
+            raise ValueError(f"forward_decode: 1 entry at {pos} do not fit "
+                             f"a cache of {T}")
+    return int(pos)
+
+
+def forward_decode(cfg: ModelConfig, params, token, cache, pos,
                    aux=None, kv_codec: bool = False):
     """token (B, 1) + cache -> (logits (B, V), cache), the new entries
-    written into ``cache`` at ``pos`` (a host int) in place.
+    written into ``cache`` at ``pos`` in place.  ``pos`` is a host int or
+    a 0-d int32 tensor on the token's device (:func:`decode_pos`); below
+    this line every layer sees the tensor, so the step reads nothing back
+    from the device.
 
     ``kv_codec`` is informational — the compressed path triggers off the
     cache's own leaves (``codes_k`` present => pwrel-compressed KV).
     """
     del kv_codec
     check_supported(cfg)
+    pos = decode_pos(cfg, cache, pos, token.device)
     x = _embed(cfg, params, token)
-    for prm, c in _layers(cfg, params, cache):
-        x = _apply_layer_decode(cfg, x, prm, pos, c)
+    for kind, prm, c in _layers(cfg, params, cache):
+        x = _apply_layer_decode(cfg, kind, x, prm, pos, c)
     return _logits(cfg, params, x)[:, 0, :], cache
 
 
@@ -224,11 +292,15 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None):
     """Zero cache in the layout ``forward_decode`` reads: per pattern
     position a stacked (U, B, T, G, hd) k/v pair, per remainder layer an
-    unstacked one."""
+    unstacked one; T is ``max_len``, for a local layer min(max_len, W)
+    (its ring)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    units = tuple(A.init_cache(cfg, batch, max_len, cfg.n_units, dtype, dev)
-                  if cfg.n_units else () for _ in cfg.pattern)
-    rem = tuple(_index(A.init_cache(cfg, batch, max_len, 1, dtype, dev), 0)
-                for _ in range(cfg.n_remainder))
+    units = tuple(A.init_cache(cfg, batch, _cache_len(cfg, kind, max_len),
+                               cfg.n_units, dtype, dev)
+                  if cfg.n_units else () for kind in cfg.pattern)
+    rem = tuple(_index(A.init_cache(cfg, batch,
+                                    _cache_len(cfg, cfg.pattern[i], max_len),
+                                    1, dtype, dev), 0)
+                for i in range(cfg.n_remainder))
     return {"units": units, "rem": rem}

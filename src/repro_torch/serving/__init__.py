@@ -1,4 +1,6 @@
-from .step import make_prefill_step, make_decode_step  # noqa: F401
+from .step import (  # noqa: F401
+    make_prefill_step, make_decode_step, CapturedDecodeStep,
+)
 from .kvcache import (  # noqa: F401
     quantize_kv, dequantize_kv, make_compressed_decode_step,
 )

@@ -18,7 +18,9 @@ package's, whose ``log2`` (XLA's) is not correctly rounded — see ROADMAP
 ``compressed_attention_decode``'s attention core is the fused
 dequantize-attention kernel (``kernels/kv_dequant_attention.py``, B11),
 which reads the stacked cache in place; each new entry is quantized once
-and written into the cache in place (``_update_q``).
+and written into the cache in place (``_update_q``), at the device
+position ``pos`` (a 0-d int32 tensor: no host sync, so the step can be
+captured), in ring mode at slot pos % T as ``repro``'s.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ from ..kernels.ref import KV_CODE_MAX, KV_STEP, kv_dequant_ref
 from ..models import attention as A
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..models.layers import rope, rope_cos_sin
 
 __all__ = ["quantize_kv", "dequantize_kv", "compress_prefill_cache",
            "compressed_attention_decode", "make_compressed_decode_step",
@@ -101,37 +102,34 @@ def _unpack(qc: dict, key: str) -> dict:
             "scale": qc[f"scale_{key}"]}
 
 
-def _update_q(qc: dict, key: str, new: dict, pos: int) -> dict:
-    """Write the quantized (B, S, ...) entry at sequence offset ``pos``
-    into ``qc``'s leaves, in place; returns ``qc``."""
-    for f in ("codes", "signs", "scale"):
-        tgt = qc[f"{f}_{key}"]
-        S = new[f].shape[1]
-        if not 0 <= pos <= tgt.shape[1] - S:
-            raise ValueError(f"_update_q: {S} entries at {pos} do not fit a "
-                             f"cache of {tgt.shape[1]}")
-        tgt[:, pos:pos + S] = new[f]
+def _update_q(qc: dict, key: str, new: dict, pos) -> dict:
+    """Write the quantized (B, S, ...) entry at sequence offset ``pos`` (a
+    host int, or a 0-d tensor on the cache's device) into ``qc``'s leaves,
+    in place; returns ``qc``."""
+    fields = ("codes", "signs", "scale")
+    A.write_seq([qc[f"{f}_{key}"] for f in fields], [new[f] for f in fields],
+                pos)
     return qc
 
 
 def compressed_attention_decode(x, prm, cfg: ModelConfig, qcache: dict,
-                                pos: int, *, window: int = 0):
-    """attention_decode against a quantized cache; quantizes the new entry
-    once, writes it at ``pos`` in place and attends through the fused
-    dequantize-attention kernel."""
-    A._unported_window(window)
+                                pos, *, window: int = 0):
+    """attention_decode against a quantized cache at ``pos`` (a 0-d int32
+    tensor on x's device); quantizes the new entry once, writes it at its
+    slot in place (pos % T in ring mode) and attends through the fused
+    dequantize-attention kernel, which reads min(T, pos + 1) slots: all of
+    a ring once it has wrapped."""
     B = x.shape[0]
+    T = qcache["codes_k"].shape[1]
     q, k, v = A._project_qkv(x, prm, cfg)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_cos_sin(posv, cfg.hd, cfg.rope_theta)
-    q = rope(q, cos, sin)
-    k = rope(k, cos, sin)
+    q, k = A.rope_at(q, k, pos, cfg)
 
-    _update_q(qcache, "k", quantize_kv(k), pos)
-    _update_q(qcache, "v", quantize_kv(v), pos)
+    slot = A.decode_slot(pos, T, window)
+    _update_q(qcache, "k", quantize_kv(k), slot)
+    _update_q(qcache, "v", quantize_kv(v), slot)
     leaves = [_unpack(qcache, key)[f] for key in ("k", "v")
               for f in ("codes", "signs", "scale")]
-    out = kv_dequant_decode_attention_gqa(q, *leaves, pos)
+    out = kv_dequant_decode_attention_gqa(q, *leaves, pos, window=window)
     out = out.to(x.dtype).reshape(B, 1, -1) @ prm["wo"]
     return out, qcache
 

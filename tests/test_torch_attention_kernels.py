@@ -384,7 +384,7 @@ def test_wrappers_reject_bad_operands():
     q = torch.zeros((2, 1, 32))
     with pytest.raises(ValueError, match="host int"):
         kd.kv_dequant_decode_attention(q, codes, signs, scale, codes, signs,
-                                       scale, torch.tensor(3))
+                                       scale, torch.tensor([3]))
     with pytest.raises(ValueError, match="do not form"):
         kd.kv_dequant_decode_attention(q, codes, signs[:, :, :2], scale,
                                        codes, signs, scale, 3)

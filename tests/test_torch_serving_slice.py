@@ -251,7 +251,7 @@ def test_full_qwen3_params_on_meta_match_the_jax_tree(J):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("gemma3-12b", "A12b"), ("mixtral-8x22b", "A12b"),
+    ("mixtral-8x22b", "A12c"),
     ("recurrentgemma-2b", "A12d"), ("xlstm-125m", "A12d"),
     ("llama-3.2-vision-90b", "A12e"), ("whisper-large-v3", "A12e"),
 ])
@@ -273,8 +273,6 @@ def test_unported_moe_windows_and_cross_attention_raise():
     prm = A.init_attn_params(None, dense, device=CPU)
     x = torch.zeros((1, 4, dense.d_model), dtype=torch.bfloat16)
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        A.attention_full(x, prm, dense, pos, window=2)
     with pytest.raises(NotImplementedError, match="A12g"):
         A.attention_full(x, prm, dense.with_(seq_parallel_attn=True), pos)
     with pytest.raises(NotImplementedError, match="A12e"):
