@@ -1020,9 +1020,11 @@ def kv_cache_case(lead: tuple, T: int, hd: int, seed: int):
 
 def kvdq_case(BG: int, T: int, hd: int, rep: int, pos: int,
               seed: int, q_dtype: str = "float32", cache=None,
-              label: str | None = None) -> dict:
+              label: str | None = None, kv_dtype: str | None = None
+              ) -> dict:
     """B11 in the TPU layout against its plain version (see
-    :func:`kvdq_check`)."""
+    :func:`kvdq_check`); ``kv_dtype="bfloat16"`` with an f32 q is the
+    ``KV_BF16`` build, the compressed decode of an f32 model."""
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
     g = torch.Generator(device="cuda:0").manual_seed(seed)
@@ -1032,18 +1034,23 @@ def kvdq_case(BG: int, T: int, hd: int, rep: int, pos: int,
         cache = [t.squeeze(2)
                  for t in kv_cache_case((BG, 1), T, hd, seed + 1)]
     shape = {"BG": BG, "T": T, "hd": hd, "rep": rep, "pos": pos}
-    if q_dtype == "bfloat16" or label:
+    if q_dtype == "bfloat16" or label or kv_dtype:
         shape["q_dtype"] = q_dtype
+    if kv_dtype:
+        shape["kv_dtype"] = kv_dtype
     if label:
         shape["case"] = label
-    return kvdq_check(kd.kv_dequant_decode_attention(q, *cache, pos), q,
-                      cache, pos, shape)
+    kv = getattr(torch, kv_dtype) if kv_dtype else None
+    return kvdq_check(kd.kv_dequant_decode_attention(q, *cache, pos,
+                                                     kv_dtype=kv),
+                      q, cache, pos, shape, kv)
 
 
-def kvdq_check(got, q, cache, pos: int, shape: dict) -> dict:
+def kvdq_check(got, q, cache, pos: int, shape: dict, kv_dtype=None) -> dict:
     """B11's output ``got`` for q (..., rep, hd) and cache leaves (..., T,
-    .) against its plain version: an f32 q within ATTN_ATOL.  A bf16 q
-    twice: within the bf16 bound (:func:`bf16_atol`; the kernel rounds p
+    .) against its plain version: an f32 q within ATTN_ATOL.  A bf16 q, or
+    an f32 q with ``kv_dtype`` bf16 (the ``KV_BF16`` build, rounded as a
+    bf16 q is but with QK^T as f32 FMAs), twice: within the bf16 bound (:func:`bf16_atol`; the kernel rounds p
     unnormalised against its running max, the plain version normalised),
     and against the plain version in the kernel's own order
     (ref.kv_dequant_decode_attention_tiled_ref on the spans and tiles the
@@ -1059,8 +1066,9 @@ def kvdq_check(got, q, cache, pos: int, shape: dict) -> dict:
     import torch
     from repro_torch.kernels import kv_dequant_attention as kd
     from repro_torch.kernels import ref
-    want = ref.kv_dequant_decode_attention_ref(q, *cache, pos)
-    if q.dtype != torch.bfloat16:
+    want = ref.kv_dequant_decode_attention_ref(q, *cache, pos,
+                                               kv_dtype=kv_dtype)
+    if q.dtype != torch.bfloat16 and kv_dtype is None:
         return attn_check("kv_dequant_decode_attention", got, want, shape)
     v = ref.kv_dequant_ref(*cache[3:])
     out = attn_check("kv_dequant_decode_attention", got, want, shape,
@@ -1068,9 +1076,9 @@ def kvdq_check(got, q, cache, pos: int, shape: dict) -> dict:
     rep, hd = q.shape[-2:]
     live = min(cache[0].shape[-2], pos + 1)
     _, span, tile = kd.grid(q[..., 0, 0].numel(), rep, hd, live, q.dtype,
-                            q.device)
-    tight = ref.kv_dequant_decode_attention_tiled_ref(q, *cache, pos, span,
-                                                      tile)
+                            q.device, kv_dtype=kv_dtype)
+    tight = ref.kv_dequant_decode_attention_tiled_ref(
+        q, *cache, pos, span, tile, kv_dtype=kv_dtype)
     err = float((got.float() - tight).abs().max())
     lim = KV_ORDER_TOL * float(v.abs().max())
     line = {**shape, "span": span, "tile": tile, "max_abs_err": err,
@@ -1298,9 +1306,11 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int,
 
 
 def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
-               q_dtype: str = "float32", host_grid: bool = False) -> dict:
+               q_dtype: str = "float32", host_grid: bool = False,
+               kv_dtype: str | None = None) -> dict:
     """B11 at a decode step's shape in the serving layout, q in
-    ``q_dtype`` (the serve path's is bfloat16), pos a 0-d int32 tensor on
+    ``q_dtype`` (the serve path's is bfloat16; an f32 q with ``kv_dtype``
+    bfloat16 is the ``KV_BF16`` build), pos a 0-d int32 tensor on
     the card as decode passes it: kernel and plain version beside the
     bytes bound (every cache byte of the tokens j <= pos read once, q
     read and the output written once).  ``host_grid``: also the same
@@ -1314,11 +1324,14 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
     cache = kv_cache_case((B, G), T, hd, 7)
     q = torch.randn((B, 1, G * rep, hd), generator=g, device="cuda:0") \
         .to(getattr(torch, q_dtype))
-    got = kd.kv_dequant_decode_attention_gqa(q, *cache, pos)
+    kv = getattr(torch, kv_dtype) if kv_dtype else None
+    got = kd.kv_dequant_decode_attention_gqa(q, *cache, pos, kv_dtype=kv)
     qh, heads = gqa_as_heads(q, cache)
-    out = kvdq_check(got[:, 0].reshape(qh.shape), qh, heads, pos,
-                     {"BG": B * G, "T": T, "hd": hd, "rep": rep, "pos": pos,
-                      "q_dtype": q_dtype, "timed": True})
+    shape = {"BG": B * G, "T": T, "hd": hd, "rep": rep, "pos": pos,
+             "q_dtype": q_dtype, "timed": True}
+    if kv_dtype:
+        shape["kv_dtype"] = kv_dtype
+    out = kvdq_check(got[:, 0].reshape(qh.shape), qh, heads, pos, shape, kv)
     live = min(T, pos + 1)
     nbytes = (2 * B * G * live * (hd + hd // 8 + 4)
               + (q.element_size() + 4) * B * G * rep * hd)
@@ -1332,14 +1345,20 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
     ex2 = 2 * B * G * live * hd
     dpos = torch.tensor(pos, dtype=torch.int32, device="cuda:0")
     inputs = cold_copies((q, *cache, dpos), (1, 2, 3, 4, 5, 6))
-    ms = cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)
+
+    def kernel(*a):
+        return kd.kv_dequant_decode_attention_gqa(*a, kv_dtype=kv)
+
+    def plain(*a):
+        return ref.kv_dequant_decode_attention_gqa_ref(*a, kv_dtype=kv)
+    ms = cuda_ms(kernel, inputs)
     if host_grid:
         def on_host_grid(qq, *rest):
             qh, heads = gqa_as_heads(qq, rest[:6])
             return kd._launch(qh, tuple(heads), rest[6], qh.device,
                               grid_live=live)
         host = [cuda_ms(on_host_grid, inputs) for _ in range(2)]
-        ms = (ms + cuda_ms(kd.kv_dequant_decode_attention_gqa, inputs)) / 2
+        ms = (ms + cuda_ms(kernel, inputs)) / 2
         got_h = on_host_grid(q, *cache, dpos)
         blocks, slots, tile = kd._blocks_slots_tile(B * G, rep, hd, q.dtype,
                                                     q.device)
@@ -1352,7 +1371,7 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
                  "the host-int grid disagree")
     out.update(
         ms=ms,
-        plain_ms=cuda_ms(ref.kv_dequant_decode_attention_gqa_ref, inputs),
+        plain_ms=cuda_ms(plain, inputs),
         library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
         sfu_bound_ms=ex2 / (SFU_PER_SM_CLOCK * SMS * mhz * 1e6) * 1e3,
         sfu_clock_mhz=mhz)
@@ -1390,6 +1409,18 @@ def attention_phase() -> dict:
                       cache=all_codes_cache(4, 512, hd, seed=361),
                       label="all codes, sweep of scales")
             for hd in (128, 32) for dt in ("float32", "bfloat16")]
+    # the KV_BF16 build (an f32 q, K/V and p rounded to bf16: the
+    # compressed decode of an f32 model) at the same edges, hd 256 and
+    # the all-codes cache; timed at the serve shape below
+    b11 += [kvdq_case(BG, T, hd, rep, pos, seed=390 + i,
+                      kv_dtype="bfloat16")
+            for i, (BG, T, hd, rep, pos) in enumerate([
+                (2, 1000, 128, 4, 128), (2, 1000, 128, 4, 127),
+                (2, 1000, 64, 3, 256), (64, 1100, 128, 4, 1024),
+                (64, 4096, 256, 2, 2049), (3, 300, 16, 5, 299)])]
+    b11.append(kvdq_case(4, 512, 128, 4, 511, seed=360, kv_dtype="bfloat16",
+                         cache=all_codes_cache(4, 512, 128, seed=361),
+                         label="all codes, sweep of scales"))
     # hd 256 (gemma3-12b) and sliding windows: windows below, at and
     # across the 64-row blocks, a window of 1, gemma3's own at its width
     b10 += [c for i, (B, S, Hq, G, hd, W) in enumerate([
@@ -1412,6 +1443,8 @@ def attention_phase() -> dict:
     b11 += [kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
                        SERVE_MAX_LEN - 1, dt) for dt in ("float32",
                                                          "bfloat16")]
+    b11.append(kvdq_timed(SERVE_BATCH, 8, 4, SERVE_MAX_LEN, 128,
+                          SERVE_MAX_LEN - 1, "float32", kv_dtype="bfloat16"))
     # gemma3-12b's prefill (global and local layers) and decode (a global
     # layer half way through the cache, against the host-int grid; a ring)
     b10 += [flash_timed_bf16(SERVE_BATCH, SERVE_PROMPT, 16, 8, 256, W)

@@ -92,7 +92,12 @@
 // rounded to bf16 (nearest even) before its products, and p = exp(s - m) to
 // bf16 before P·V, unnormalised and relative to the block's running max m,
 // divided by the f32 sum of the unrounded p; the sums stay f32.  For an f32
-// q nothing is rounded.
+// q nothing is rounded, unless the build takes KV_BF16: then the f32-q path
+// rounds each dequantized K and V element and p to bf16 at the same points
+// (QK^T and P·V stay f32 FMAs and the sums f32), as repro's serving decode
+// of an f32 model does (dequantize_kv's bf16 default, _gqa_out's bf16 P).
+// KV_BF16 is the compressed decode's build (serving/kvcache.py); without it
+// the kernel keeps the Pallas kernel's f32 semantics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -947,7 +952,7 @@ __host__ __device__ constexpr int kv_smem_bytes() {
 // a partial (max, sum, P·V) for kvdq_combine_kernel.  The block reads pos
 // itself: live = min(T, pos + 1), and its span by splits' rule with at most
 // max_split spans; a split past the last span writes the neutral partial.
-template <int HD, typename TQ>
+template <int HD, typename TQ, bool KV_BF16>
 __global__ void __launch_bounds__(kKvThreads, kKvBlocksSM)
 kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
                     long long qr, KvView kc, KvView vc, int sign_lw,
@@ -1009,6 +1014,9 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   // k = 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9 are dims 16 kc + 4 tq + 0 .. 3,
   // the four codes of one 32-bit word (the B side reads them so)
   constexpr bool BF = !std::is_same<TQ, float>::value;
+  static_assert(KV_BF16 || !BF, "a bf16 q rounds K/V and p to bf16");
+  // the type K/V and p are rounded to before their products
+  using TK = typename std::conditional<KV_BF16, __nv_bfloat16, float>::type;
   constexpr int NC = HD / 16;
   const int li = lane % LPT, gq = lane >> 2, tq = lane & 3;
   uint32_t qa[BF ? NC : 1][2];
@@ -1192,7 +1200,7 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
 #pragma unroll
         for (int c = 0; c < KD / 4; ++c) {
           float kv[4];
-          dequant4<TQ, FAST>(w[c], sgn >> (4 * c), sc, step, kv);
+          dequant4<TK, FAST>(w[c], sgn >> (4 * c), sc, step, kv);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float4 qv = *reinterpret_cast<const float4*>(
@@ -1266,7 +1274,7 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
       const int t = warp * TW + e / R;
       const float pv = expf(sc_s[(e % R) * TT + t] - my_m);
       l_part += pv;
-      p_s[t * R + e % R] = round_as<TQ>(pv);
+      p_s[t * R + e % R] = round_as<TK>(pv);
     }
     __syncwarp();
 
@@ -1289,7 +1297,7 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
               *reinterpret_cast<const uint32_t*>(vcs + t * HD + d);
           const uint32_t sgn = vss[t * (HD / 8) + (d >> 3)] >> (d & 7);
           float vv[4];
-          dequant4<TQ, FAST>(cw, sgn, vls[t], step, vv);
+          dequant4<TK, FAST>(cw, sgn, vls[t], step, vv);
 #pragma unroll
           for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -1395,13 +1403,13 @@ int sign_log_width(const KvView& v, int hd) {
   return 1;
 }
 
-template <int HD, typename TQ>
+template <int HD, typename TQ, bool KV_BF16>
 cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
                         const KvView& vc, float* out, float* part_acc,
                         float* part_ml, int B, int G, int rep, const int* pos,
                         int T, int n_split, int max_split,
                         cudaStream_t stream) {
-  constexpr auto kernel = kvdq_partial_kernel<HD, TQ>;
+  constexpr auto kernel = kvdq_partial_kernel<HD, TQ, KV_BF16>;
   const int smem = kv_smem_bytes<HD>();
   cudaError_t err = smem_once<kernel>(smem);
   if (err != cudaSuccess) return err;
@@ -1419,26 +1427,26 @@ cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
   return cudaGetLastError();
 }
 
-template <typename TQ>
+template <typename TQ, bool KV_BF16>
 cudaError_t dispatch_kvdq(const void* q, const long long* qst,
                           const KvView& kc, const KvView& vc, float* out,
                           float* part_acc, float* part_ml, int B, int G,
                           int rep, int hd, const int* pos, int T, int n_split,
                           int max_split, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_kvdq<16, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
-    case 32: return launch_kvdq<32, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
-    case 64: return launch_kvdq<64, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
-    case 128: return launch_kvdq<128, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
-    case 256: return launch_kvdq<256, TQ>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 16: return launch_kvdq<16, TQ, KV_BF16>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 32: return launch_kvdq<32, TQ, KV_BF16>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 64: return launch_kvdq<64, TQ, KV_BF16>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 128: return launch_kvdq<128, TQ, KV_BF16>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
+    case 256: return launch_kvdq<256, TQ, KV_BF16>(q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split, max_split, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int HD, typename TQ>
+template <int HD, typename TQ, bool KV_BF16>
 int kvdq_slots() {
   int dev = 0, sms = 0, per_sm = 0;
-  constexpr auto kernel = kvdq_partial_kernel<HD, TQ>;
+  constexpr auto kernel = kvdq_partial_kernel<HD, TQ, KV_BF16>;
   const int smem = kv_smem_bytes<HD>();
   cudaError_t err = smem_once<kernel>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1450,14 +1458,14 @@ int kvdq_slots() {
   return err == cudaSuccess ? sms * per_sm : -(int)err;
 }
 
-template <typename TQ>
+template <typename TQ, bool KV_BF16>
 int kvdq_slots_hd(int hd) {
   switch (hd) {
-    case 16: return kvdq_slots<16, TQ>();
-    case 32: return kvdq_slots<32, TQ>();
-    case 64: return kvdq_slots<64, TQ>();
-    case 128: return kvdq_slots<128, TQ>();
-    case 256: return kvdq_slots<256, TQ>();
+    case 16: return kvdq_slots<16, TQ, KV_BF16>();
+    case 32: return kvdq_slots<32, TQ, KV_BF16>();
+    case 64: return kvdq_slots<64, TQ, KV_BF16>();
+    case 128: return kvdq_slots<128, TQ, KV_BF16>();
+    case 256: return kvdq_slots<256, TQ, KV_BF16>();
     default: return -(int)cudaErrorInvalidValue;
   }
 }
@@ -1545,7 +1553,9 @@ int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
                              static_cast<cudaStream_t>(stream));
 }
 
-// B11.  q (B, G, rep, hd) f32 or bf16; each cache operand (B, G, T, ·):
+// B11.  q (B, G, rep, hd) f32 or bf16 (bf16 = 1); kv_bf16 = 1 rounds the
+// dequantized K/V and p to bf16 for an f32 q too (a bf16 q always rounds
+// them); each cache operand (B, G, T, ·):
 // codes uint8 (·, hd) with 16-byte aligned rows, signs uint8 (·, hd/8) with
 // 2-byte aligned rows, scale f32 (·, 1); out (B, G, rep, hd) f32
 // contiguous; hd in {16, 32, 64, 128, 256}; pos one int32 in device memory.
@@ -1562,7 +1572,7 @@ int kv_dequant_decode_attention_fwd(
     const void* sv, const long long* sv_st, const void* lv,
     const long long* lv_st, float* out, float* part_acc, float* part_ml,
     int batch, int kv_heads, int rep, int hd, const int* pos, int T,
-    int n_split, int max_split, int bf16, void* stream) {
+    int n_split, int max_split, int bf16, int kv_bf16, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || rep <= 0 || T <= 0 || hd < 16 ||
       hd > 256 || (hd & (hd - 1)) || n_split <= 0 || max_split < n_split ||
       pos == nullptr || (n_split > 1 && (part_acc == nullptr ||
@@ -1571,24 +1581,30 @@ int kv_dequant_decode_attention_fwd(
   const KvView kc = make_view(ck, ck_st, sk, sk_st, lk, lk_st);
   const KvView vc = make_view(cv, cv_st, sv, sv_st, lv, lv_st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? (int)dispatch_kvdq<__nv_bfloat16>(q, q_st, kc, vc, out,
-                                                  part_acc, part_ml, batch,
-                                                  kv_heads, rep, hd, pos, T,
-                                                  n_split, max_split, s)
-              : (int)dispatch_kvdq<float>(q, q_st, kc, vc, out, part_acc,
+  if (bf16)
+    return (int)dispatch_kvdq<__nv_bfloat16, true>(
+        q, q_st, kc, vc, out, part_acc, part_ml, batch, kv_heads, rep, hd, pos,
+        T, n_split, max_split, s);
+  if (kv_bf16)
+    return (int)dispatch_kvdq<float, true>(q, q_st, kc, vc, out, part_acc,
+                                           part_ml, batch, kv_heads, rep, hd,
+                                           pos, T, n_split, max_split, s);
+  return (int)dispatch_kvdq<float, false>(q, q_st, kc, vc, out, part_acc,
                                           part_ml, batch, kv_heads, rep, hd,
                                           pos, T, n_split, max_split, s);
 }
 
 // Blocks of B11's partial kernel the card runs at once (SMs times blocks an
-// SM) for head dim hd and q's type, a negative cudaError_t on failure; and
-// its tiling: tokens a tile (a span is best whole tiles) and query rows a
-// block.
-int kv_dequant_decode_attention_slots(int hd, int bf16, int* tile,
-                                      int* rows) {
+// SM) for head dim hd, q's type and the kv_bf16 build, a negative
+// cudaError_t on failure; and its tiling: tokens a tile (a span is best whole
+// tiles) and query rows a block.
+int kv_dequant_decode_attention_slots(int hd, int bf16, int kv_bf16,
+                                      int* tile, int* rows) {
   *tile = kv_tile(hd);
   *rows = kKvRows;
-  return bf16 ? kvdq_slots_hd<__nv_bfloat16>(hd) : kvdq_slots_hd<float>(hd);
+  if (bf16) return kvdq_slots_hd<__nv_bfloat16, true>(hd);
+  return kv_bf16 ? kvdq_slots_hd<float, true>(hd)
+                 : kvdq_slots_hd<float, false>(hd);
 }
 
 // B11's dequantize on its own, for the check that it equals the previous

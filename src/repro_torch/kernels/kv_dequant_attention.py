@@ -25,7 +25,11 @@ a bfloat16 q the dequantized K/V and the probabilities are rounded to
 bfloat16 before their products (sums in f32), as ``repro``'s serving
 decode rounds them (the kernel rounds the unnormalised probabilities,
 relative to a block's running max, its plain version the normalised ones;
-see ``csrc/attention.cu``).  On
+see ``csrc/attention.cu``).  ``kv_dtype=torch.bfloat16`` rounds them so for
+a float32 q too (the kernel's ``KV_BF16`` build): ``repro``'s serving decode
+dequantizes the cache to bfloat16 whatever the model's dtype.  The default,
+``None``, keeps a float32 q's products in float32 throughout, the Pallas
+kernel's semantics.  On
 a CUDA tensor both launch the hand-written Hopper kernel in
 ``csrc/attention.cu`` (see the note there for what bounds it); on a CPU
 tensor they run the plain versions in :mod:`.ref`.  Any other device
@@ -59,8 +63,8 @@ __all__ = ["kv_dequant_decode_attention", "kv_dequant_decode_attention_gqa",
 launch_counts: dict[str, int] = {"kv_dequant_decode_attention": 0}
 
 _fns = None    # C entry points, bound at first CUDA call
-#: (id of the entry point, device, hd, bf16) -> (blocks the card runs at
-#: once, tokens a tile, query rows a block), from the library
+#: (id of the entry point, device, hd, bf16 q, bf16 K/V) -> (blocks the
+#: card runs at once, tokens a tile, query rows a block), from the library
 _grids: dict = {}
 
 
@@ -77,9 +81,10 @@ def _kernels() -> dict:
             "kv_dequant_decode_attention": (
                 "kv_dequant_decode_attention_fwd",
                 [p, st] + [p, st] * 6 + [p, p, p] + [i32] * 4 + [p]
-                + [i32] * 4 + [p]),
+                + [i32] * 5 + [p]),
             "slots": ("kv_dequant_decode_attention_slots",
-                      [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]),
+                      [i32, i32, i32, ctypes.POINTER(i32),
+                       ctypes.POINTER(i32)]),
         }, "attention_cuda_error_string")
     return _fns
 
@@ -116,13 +121,14 @@ def grid_splits(blocks: int, T: int, slots: int, tile: int) -> int:
     return max(1, min(slots // blocks, -(-T // tile)))
 
 
-def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int
+def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int, kv_bf16: int
              ) -> tuple[int, int, int]:
-    key = (id(fns["slots"]), dev.index, hd, bf16)
+    key = (id(fns["slots"]), dev.index, hd, bf16, kv_bf16)
     if key not in _grids:
         tile, rows = ctypes.c_int(), ctypes.c_int()
         with torch.cuda.device(dev):
-            n = fns["slots"](hd, bf16, ctypes.byref(tile), ctypes.byref(rows))
+            n = fns["slots"](hd, bf16, kv_bf16, ctypes.byref(tile),
+                             ctypes.byref(rows))
         if n <= 0:
             raise RuntimeError(f"kv_dequant_decode_attention: occupancy query "
                                f"failed: {fns['error'](-n).decode()}")
@@ -130,21 +136,33 @@ def _grid_of(fns: dict, dev: torch.device, hd: int, bf16: int
     return _grids[key]
 
 
+def _kv_bf16(q_dtype: torch.dtype, kv_dtype) -> int:
+    """1 where the kernel rounds K/V and p to bf16 (a bf16 q, or
+    ``kv_dtype=torch.bfloat16``), else 0."""
+    if kv_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"kv_dequant_decode_attention: kv_dtype must be None "
+                         f"or torch.bfloat16, got {kv_dtype}")
+    return int(q_dtype == torch.bfloat16 or kv_dtype == torch.bfloat16)
+
+
 def _blocks_slots_tile(heads: int, rep: int, hd: int, q_dtype: torch.dtype,
-                       dev: torch.device) -> tuple[int, int, int]:
+                       dev: torch.device, kv_dtype=None
+                       ) -> tuple[int, int, int]:
     slots, tile, rows = _grid_of(_kernels(), dev, hd,
-                                 int(q_dtype == torch.bfloat16))
+                                 int(q_dtype == torch.bfloat16),
+                                 _kv_bf16(q_dtype, kv_dtype))
     return heads * -(-rep // rows), slots, tile
 
 
 def grid(heads: int, rep: int, hd: int, live: int, q_dtype: torch.dtype,
-         dev: torch.device) -> tuple[int, int, int]:
+         dev: torch.device, kv_dtype=None) -> tuple[int, int, int]:
     """``(n_split, span, tile)`` the kernel takes on CUDA device ``dev``
     for ``heads`` (batch, kv head) pairs of ``rep`` query rows of ``hd``
-    dims in ``q_dtype`` over ``live`` cached tokens: the spans of
-    :func:`splits` it finds from pos and the tokens a tile, both as the
-    built kernel takes them."""
-    blocks, slots, tile = _blocks_slots_tile(heads, rep, hd, q_dtype, dev)
+    dims in ``q_dtype`` (K/V rounded to ``kv_dtype``) over ``live`` cached
+    tokens: the spans of :func:`splits` it finds from pos and the tokens a
+    tile, both as the built kernel takes them."""
+    blocks, slots, tile = _blocks_slots_tile(heads, rep, hd, q_dtype, dev,
+                                             kv_dtype)
     return splits(blocks, live, slots, tile) + (tile,)
 
 
@@ -154,8 +172,10 @@ def _strides(t: torch.Tensor):
 
 
 def _launch(q: torch.Tensor, cache: tuple, pos: torch.Tensor,
-            dev: torch.device, grid_live: int | None = None) -> torch.Tensor:
-    """q (B, G, rep, hd); cache leaves (B, G, T, ·) -> (B, G, rep, hd) f32.
+            dev: torch.device, grid_live: int | None = None, kv_dtype=None
+            ) -> torch.Tensor:
+    """q (B, G, rep, hd); cache leaves (B, G, T, ·) -> (B, G, rep, hd) f32;
+    ``kv_dtype`` as :func:`kv_dequant_decode_attention` takes it.
 
     The grid is :func:`grid_splits` of T, or (``grid_live``, a host int
     that must equal min(T, pos + 1)) :func:`splits`' n_split at that live,
@@ -182,7 +202,9 @@ def _launch(q: torch.Tensor, cache: tuple, pos: torch.Tensor,
     if q.stride(3) != 1:
         raise ValueError("kv_dequant_decode_attention: q's head axis must "
                          "be contiguous")
-    blocks, slots, tile = _blocks_slots_tile(B * G, rep, hd, q.dtype, dev)
+    kv_bf16 = _kv_bf16(q.dtype, kv_dtype)
+    blocks, slots, tile = _blocks_slots_tile(B * G, rep, hd, q.dtype, dev,
+                                             kv_dtype)
     n_split = (grid_splits(blocks, T, slots, tile) if grid_live is None
                else splits(blocks, grid_live, slots, tile)[0])
     fns = _kernels()
@@ -202,7 +224,7 @@ def _launch(q: torch.Tensor, cache: tuple, pos: torch.Tensor,
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(), B, G, rep, hd,
             pos.data_ptr(), T, n_split, max(1, slots // blocks),
-            int(q.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), kv_bf16,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kv_dequant_decode_attention kernel launch "
@@ -237,13 +259,16 @@ def _check_window(window: int, T: int) -> None:
 
 
 def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
-                                signs_v, scale_v, pos, *, window: int = 0
-                                ) -> torch.Tensor:
+                                signs_v, scale_v, pos, *, window: int = 0,
+                                kv_dtype=None) -> torch.Tensor:
     """q (BG, rep, hd); cache leaves (BG, T, ·) -> (BG, rep, hd) f32.
 
     ``pos``: the last valid cache index (causal mask j <= pos), a 0-d
-    int32 tensor on q's device or a host int.
+    int32 tensor on q's device or a host int.  ``kv_dtype``: None, or
+    torch.bfloat16 to round K/V and the probabilities to bf16 for an f32 q
+    too (see the module note).
     """
+    _kv_bf16(q.dtype, kv_dtype)
     pos = _check_pos(pos, q)
     cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
     BG, rep, hd = q.shape
@@ -256,19 +281,22 @@ def kv_dequant_decode_attention(q, codes_k, signs_k, scale_k, codes_v,
     _check_window(window, T)
     dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention")
     if dev is None:
-        return kv_dequant_decode_attention_ref(q, *cache, pos)
+        return kv_dequant_decode_attention_ref(q, *cache, pos,
+                                               kv_dtype=kv_dtype)
     return _launch(q.unsqueeze(1), tuple(t.unsqueeze(1) for t in cache),
-                   pos, dev)[:, 0]
+                   pos, dev, kv_dtype=kv_dtype)[:, 0]
 
 
 def kv_dequant_decode_attention_gqa(q, codes_k, signs_k, scale_k, codes_v,
-                                    signs_v, scale_v, pos, *, window: int = 0
-                                    ) -> torch.Tensor:
+                                    signs_v, scale_v, pos, *, window: int = 0,
+                                    kv_dtype=None) -> torch.Tensor:
     """q (B, 1, Hq, hd); one layer's cache leaves (B, T, G, ·) ->
     (B, 1, Hq, hd) f32, query head h attending with kv head h // (Hq / G).
     ``window``: the layer's sliding window (0 none), only checked against
-    T (see the module note).
+    T (see the module note); ``kv_dtype`` as
+    :func:`kv_dequant_decode_attention` takes it.
     """
+    _kv_bf16(q.dtype, kv_dtype)
     pos = _check_pos(pos, q)
     cache = (codes_k, signs_k, scale_k, codes_v, signs_v, scale_v)
     B, one, Hq, hd = q.shape
@@ -283,7 +311,9 @@ def kv_dequant_decode_attention_gqa(q, codes_k, signs_k, scale_k, codes_v,
     _check_window(window, T)
     dev = _cuda_device((q,) + cache, "kv_dequant_decode_attention_gqa")
     if dev is None:
-        return kv_dequant_decode_attention_gqa_ref(q, *cache, pos)
+        return kv_dequant_decode_attention_gqa_ref(q, *cache, pos,
+                                                   kv_dtype=kv_dtype)
     out = _launch(q[:, 0].unflatten(1, (G, Hq // G)),
-                  tuple(t.transpose(1, 2) for t in cache), pos, dev)
+                  tuple(t.transpose(1, 2) for t in cache), pos, dev,
+                  kv_dtype=kv_dtype)
     return out.reshape(B, 1, Hq, hd)

@@ -339,19 +339,30 @@ def kv_dequant_ref(codes: torch.Tensor, signs: torch.Tensor,
     return torch.where(neg, -mag, mag)
 
 
+def _rounds_kv(q: torch.Tensor, kv_dtype) -> bool:
+    """Whether B11 rounds K/V and p to bf16: for a bf16 q, or for any q
+    with ``kv_dtype=torch.bfloat16`` (None keeps an f32 q's f32 products)."""
+    if kv_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"kv_dequant_decode_attention: kv_dtype must be None "
+                         f"or torch.bfloat16, got {kv_dtype}")
+    return q.dtype == torch.bfloat16 or kv_dtype == torch.bfloat16
+
+
 def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
-                                    signs_v, scale_v, pos) -> torch.Tensor:
+                                    signs_v, scale_v, pos, *, kv_dtype=None
+                                    ) -> torch.Tensor:
     """q (..., rep, hd); cache leaves (..., T, ·) -> (..., rep, hd) f32,
     attending to cache slots j <= pos (a host int or a 0-d tensor on q's
-    device, whose value is not read on the host).  For a bf16 q the
-    dequantized K/V
-    and the probabilities are rounded to bf16 before their products (sums
-    in f32), as ``repro``'s serving decode dequantizes the cache to the
-    model's dtype and ``_gqa_out`` rounds the probabilities to v's."""
+    device, whose value is not read on the host).  For a bf16 q, or with
+    ``kv_dtype=torch.bfloat16``, the dequantized K/V and the probabilities
+    are rounded to bf16 before their products (sums in f32), as
+    ``repro``'s serving decode dequantizes the cache to bf16
+    (``dequantize_kv``'s default) and ``_gqa_out`` rounds the probabilities
+    to v's."""
     k = kv_dequant_ref(codes_k, signs_k, scale_k)
     v = kv_dequant_ref(codes_v, signs_v, scale_v)
     p_dtype = None
-    if q.dtype == torch.bfloat16:
+    if _rounds_kv(q, kv_dtype):
         k, v = k.bfloat16().float(), v.bfloat16().float()
         p_dtype = torch.bfloat16
     T = codes_k.shape[-2]
@@ -361,9 +372,11 @@ def kv_dequant_decode_attention_ref(q, codes_k, signs_k, scale_k, codes_v,
 
 def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
                                         codes_v, signs_v, scale_v, pos, *,
-                                        window: int = 0) -> torch.Tensor:
+                                        window: int = 0, kv_dtype=None
+                                        ) -> torch.Tensor:
     """q (B, 1, Hq, hd); cache leaves (B, T, G, ·) -> (B, 1, Hq, hd) f32
-    (bf16 q: rounded as in :func:`kv_dequant_decode_attention_ref`).
+    (bf16 q or ``kv_dtype=torch.bfloat16``: rounded as in
+    :func:`kv_dequant_decode_attention_ref`).
     ``window``, as the kernel's wrapper takes it, applies no mask: a
     windowed layer's cache holds at most W slots, a ring or shorter, where
     j <= pos is the window's mask (``kernels/kv_dequant_attention.py``);
@@ -378,14 +391,14 @@ def kv_dequant_decode_attention_gqa_ref(q, codes_k, signs_k, scale_k,
     qh = q[:, 0].reshape(B, G, Hq // G, hd)
     cache = [t.transpose(1, 2) for t in (codes_k, signs_k, scale_k, codes_v,
                                          signs_v, scale_v)]
-    out = kv_dequant_decode_attention_ref(qh, *cache, pos)
+    out = kv_dequant_decode_attention_ref(qh, *cache, pos, kv_dtype=kv_dtype)
     return out.reshape(B, 1, Hq, hd)
 
 
 def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
                                           codes_v, signs_v, scale_v, pos,
-                                          span: int, tile: int
-                                          ) -> torch.Tensor:
+                                          span: int, tile: int, *,
+                                          kv_dtype=None) -> torch.Tensor:
     """The B11 kernel's order of operations, for a check of it far tighter
     than the bf16 bound: q (..., rep, hd); cache leaves (..., T, ·) ->
     (..., rep, hd) f32, attending to j <= pos.  The tokens go in spans of
@@ -394,10 +407,11 @@ def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
     rounded to bf16 unnormalised, and K/V rounded to bf16, as
     :func:`kv_dequant_decode_attention_ref` rounds them), the sum of the
     unrounded p and the accumulator rescaled by exp(m - m_new); the spans
-    combined by their maxima.  Dot products and sums are f64, where the
+    combined by their maxima.  ``kv_dtype=torch.bfloat16`` rounds K/V and p
+    so for an f32 q too (the kernel's ``KV_BF16`` build).  Dot products and sums are f64, where the
     kernel's are f32 in its own order: the two differ by f32 rounding and
     by the odd p that rounds to its other bf16 neighbour."""
-    bf = q.dtype == torch.bfloat16
+    bf = _rounds_kv(q, kv_dtype)
 
     def cast(x):
         return (x.bfloat16() if bf else x).double()

@@ -118,7 +118,11 @@ def compressed_attention_decode(x, prm, cfg: ModelConfig, qcache: dict,
     tensor on x's device); quantizes the new entry once, writes it at its
     slot in place (pos % T in ring mode) and attends through the fused
     dequantize-attention kernel, which reads min(T, pos + 1) slots: all of
-    a ring once it has wrapped."""
+    a ring once it has wrapped.  As ``repro``'s decode dequantizes the cache
+    to bf16 whatever the model's dtype and its P·V einsum returns bf16, the
+    kernel rounds K/V and the probabilities to bf16 (``kv_dtype``) and the
+    attention output is rounded to bf16 before ``wo``; for a bf16 model both
+    are what the bf16 q already gave."""
     B = x.shape[0]
     T = qcache["codes_k"].shape[1]
     q, k, v = A._project_qkv(x, prm, cfg)
@@ -129,8 +133,9 @@ def compressed_attention_decode(x, prm, cfg: ModelConfig, qcache: dict,
     _update_q(qcache, "v", quantize_kv(v), slot)
     leaves = [_unpack(qcache, key)[f] for key in ("k", "v")
               for f in ("codes", "signs", "scale")]
-    out = kv_dequant_decode_attention_gqa(q, *leaves, pos, window=window)
-    out = out.to(x.dtype).reshape(B, 1, -1) @ prm["wo"]
+    out = kv_dequant_decode_attention_gqa(q, *leaves, pos, window=window,
+                                          kv_dtype=torch.bfloat16)
+    out = out.to(torch.bfloat16).to(x.dtype).reshape(B, 1, -1) @ prm["wo"]
     return out, qcache
 
 

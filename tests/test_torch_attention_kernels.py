@@ -265,6 +265,87 @@ def test_tiled_plain_version_equals_the_plain_one_for_an_f32_q(
         rtol=1e-5, atol=1e-6)
 
 
+# -- kv_dtype: the compressed decode of an f32 model rounds as repro's -------
+
+def _kvdq_ref_before_kv_dtype(q, codes_k, signs_k, scale_k, codes_v,
+                              signs_v, scale_v, pos):
+    """ref.kv_dequant_decode_attention_ref as it stood before it took
+    ``kv_dtype``, frozen here: K/V and p rounded to bf16 for a bf16 q
+    only."""
+    k = ref.kv_dequant_ref(codes_k, signs_k, scale_k)
+    v = ref.kv_dequant_ref(codes_v, signs_v, scale_v)
+    p_dtype = None
+    if q.dtype == torch.bfloat16:
+        k, v = k.bfloat16().float(), v.bfloat16().float()
+        p_dtype = torch.bfloat16
+    mask = torch.arange(codes_k.shape[-2]) <= pos
+    return ref._attend(q.float(), k, v, mask, p_dtype)
+
+
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+def test_kvdq_plain_versions_without_kv_dtype_are_unchanged(J, B, T, G, rep,
+                                                            hd, pos):
+    """``kv_dtype=None`` (the default) keeps the plain versions what they
+    were, bit for bit, for an f32 and a bf16 q: an f32 q stays f32
+    throughout (the Pallas kernel's semantics); and a bf16 q rounds the
+    same with ``kv_dtype=torch.bfloat16`` as without."""
+    _, _, _, leaves, qb = _serving_inputs(J, B, T, G, rep, hd, pos)
+    heads = [t.transpose(1, 2) for t in leaves]
+    for q in (qb.float(), qb):
+        qh = q[:, 0].unflatten(1, (G, rep))
+        want = _kvdq_ref_before_kv_dtype(qh, *heads, pos)
+        for kw in ({}, {"kv_dtype": None}):
+            assert torch.equal(
+                ref.kv_dequant_decode_attention_ref(qh, *heads, pos, **kw),
+                want)
+            assert torch.equal(
+                kd.kv_dequant_decode_attention_gqa(q, *leaves, pos, **kw),
+                want.reshape(B, 1, G * rep, hd))
+        _, span = kd.splits(B * G, min(T, pos + 1), H100_SLOTS, H100_TILE)
+        tiled = ref.kv_dequant_decode_attention_tiled_ref(
+            qh, *heads, pos, span, H100_TILE)
+        assert torch.equal(tiled, ref.kv_dequant_decode_attention_tiled_ref(
+            qh, *heads, pos, span, H100_TILE, kv_dtype=None))
+    assert torch.equal(
+        kd.kv_dequant_decode_attention_gqa(qb, *leaves, pos),
+        kd.kv_dequant_decode_attention_gqa(qb, *leaves, pos,
+                                           kv_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="kv_dtype"):
+        kd.kv_dequant_decode_attention_gqa(qb.float(), *leaves, pos,
+                                           kv_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", KVDQ_BF16_CASES)
+def test_kvdq_kv_dtype_rounds_an_f32_q_as_repro(J, B, T, G, rep, hd, pos):
+    """An f32 q with ``kv_dtype=torch.bfloat16`` rounds the dequantized
+    K/V and the probabilities to bf16 (q stays f32), as repro's serving
+    decode of an f32 model does: rounded to bf16 as repro's output is, it
+    equals repro's core in all but a few elements (measured on these
+    inputs: 5 of 4,480, all in one case, max |Δ| 2^-10, one bf16 step),
+    where the f32 default differs in 50% to 58%.  Its form in the
+    kernel's order lies within the bf16 bound."""
+    jk, jv, jq, leaves, qb = _serving_inputs(J, B, T, G, rep, hd, pos)
+    q = qb.float()
+    want = _repro_decode_core(J, jk, jv, jq.astype(J.jnp.float32), pos)
+    got = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos,
+                                             kv_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    new = got.bfloat16().float().numpy()
+    old = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos) \
+        .bfloat16().float().numpy()
+    d_new, d_old = np.abs(new - want), np.abs(old - want)
+    assert int((d_new != 0).sum()) <= 5
+    assert float((d_old != 0).mean()) >= 0.3
+    assert d_new.max() <= 2.0 ** -10
+    heads = [t.transpose(1, 2) for t in leaves]
+    qh = q[:, 0].unflatten(1, (G, rep))
+    _, span = kd.splits(B * G, min(T, pos + 1), H100_SLOTS, H100_TILE)
+    tiled = ref.kv_dequant_decode_attention_tiled_ref(
+        qh, *heads, pos, span, H100_TILE, kv_dtype=torch.bfloat16)
+    assert bf16_bound(tiled.reshape(got.shape), got,
+                      ref.kv_dequant_ref(*leaves[3:]))
+
+
 @pytest.mark.parametrize("blocks,live,slots,tile", [
     (64, 4096, 264, 128), (64, 2049, 264, 128), (64, 2080, 264, 128),
     (2, 65, 264, 128), (2, 64, 264, 128), (1, 1, 264, 128),
@@ -449,6 +530,45 @@ def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
             rtol=0.0, atol=2.0 ** -15 * float(v.abs().max()))
     else:
         torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,G,rep,hd,pos", [
+    (2, 1000, 2, 4, 128, 999), (2, 1000, 2, 4, 128, 127),
+    (8, 4096, 8, 4, 128, 2050), (1, 600, 4, 3, 64, 517),
+    (2, 1024, 8, 2, 256, 1500), (3, 300, 1, 5, 16, 299)])
+def test_cuda_kvdq_kv_bf16_build_matches_its_plain_version(card, B, T, G,
+                                                           rep, hd, pos):
+    """The f32-q build that rounds K/V and p to bf16 (``KV_BF16``, what
+    the compressed decode of an f32 model launches) against its plain
+    version within the bf16 bound, and within 2^-15·max|v| of the plain
+    version in the kernel's order on the kernel's own spans."""
+    from repro_torch.serving.kvcache import quantize_kv
+    g = torch.Generator(device=card).manual_seed(T + hd)
+    q = torch.randn((B, 1, G * rep, hd), generator=g, device=card)
+    leaves = []
+    for _ in range(2):
+        qz = quantize_kv(torch.randn((B, T, G, hd), generator=g,
+                                     device=card))
+        leaves += [qz[f] for f in ("codes", "signs", "scale")]
+    kd.reset_launch_counts()
+    got = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos,
+                                             kv_dtype=torch.bfloat16)
+    assert kd.launch_counts["kv_dequant_decode_attention"] == 1
+    want = ref.kv_dequant_decode_attention_gqa_ref(q, *leaves, pos,
+                                                   kv_dtype=torch.bfloat16)
+    v = ref.kv_dequant_ref(*leaves[3:])
+    assert bf16_bound(got, want, v)
+    _, span, tile = kd.grid(B * G, rep, hd, min(T, pos + 1), q.dtype, card,
+                            kv_dtype=torch.bfloat16)
+    tiled = ref.kv_dequant_decode_attention_tiled_ref(
+        q[:, 0].unflatten(1, (G, rep)),
+        *(t.transpose(1, 2) for t in leaves), pos, span, tile,
+        kv_dtype=torch.bfloat16)
+    torch.testing.assert_close(got, tiled.reshape(got.shape), rtol=0.0,
+                               atol=2.0 ** -15 * float(v.abs().max()))
+    f32 = kd.kv_dequant_decode_attention_gqa(q, *leaves, pos)
+    assert not torch.equal(f32, got)
 
 
 @pytest.mark.cuda
