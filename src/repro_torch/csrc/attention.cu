@@ -93,11 +93,19 @@
 // bf16 before P·V, unnormalised and relative to the block's running max m,
 // divided by the f32 sum of the unrounded p; the sums stay f32.  For an f32
 // q nothing is rounded, unless the build takes KV_BF16: then the f32-q path
-// rounds each dequantized K and V element and p to bf16 at the same points
-// (QK^T and P·V stay f32 FMAs and the sums f32), as repro's serving decode
-// of an f32 model does (dequantize_kv's bf16 default, _gqa_out's bf16 P).
-// KV_BF16 is the compressed decode's build (serving/kvcache.py); without it
-// the kernel keeps the Pallas kernel's f32 semantics.
+// rounds each dequantized K and V element to bf16 before its products and p
+// to bf16 before P·V (QK^T and P·V stay f32 FMAs and the sums f32), as
+// repro's serving decode of an f32 model does (dequantize_kv's bf16
+// default, _gqa_out's bf16 P).  That build rounds p where repro does, after
+// the softmax's normalisation: p = bf16(exp(s - M) / L) with the row's max M
+// and sum L over every live token, which no split knows while it walks its
+// span.  So it takes two launches over the one grid: kStats (QK^T alone, each
+// split's running max and sum) and kNormed (each block combines the splits'
+// (max, sum) of its rows to M and L, as the combine weighs them, then rounds
+// the normalised p and sums P·V; the combine adds the partials).  Its cost
+// is a second pass over K.  KV_BF16 is the compressed decode's build
+// (serving/kvcache.py); without it the kernel keeps the Pallas kernel's f32
+// semantics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -919,6 +927,11 @@ __host__ __device__ constexpr int kv_smem_bytes() {
               2 * kKvRows * kv_tile(HD) + kKvWarps * kKvRows + kKvRows);
 }
 
+// The passes of B11's partial kernel: kOnePass, the online softmax below (p
+// rounded unnormalised); the KV_BF16 build of an f32 q runs kStats then
+// kNormed (see the note at the top).
+enum KvPass : int { kOnePass = 0, kStats = 1, kNormed = 2 };
+
 // One block: query rows r0 .. r0 + 3 of one (batch, kv head) over the
 // tokens [s0, s1) of its split, walked as tiles of kv_tile(HD) tokens through a
 // ring of kKvStages cp.async stages that carry each tile's K and V codes,
@@ -952,7 +965,11 @@ __host__ __device__ constexpr int kv_smem_bytes() {
 // a partial (max, sum, P·V) for kvdq_combine_kernel.  The block reads pos
 // itself: live = min(T, pos + 1), and its span by splits' rule with at most
 // max_split spans; a split past the last span writes the neutral partial.
-template <int HD, typename TQ, bool KV_BF16>
+// PASS kStats copies no V, stops after each tile's max and sum, and writes
+// its rows' (max, sum) to part_ml whatever n_split; kNormed reads them from
+// there, so its p needs no running max (nothing is rescaled), and writes
+// normalised rows (one split) or partials that the combine adds.
+template <int HD, typename TQ, bool KV_BF16, int PASS>
 __global__ void __launch_bounds__(kKvThreads, kKvBlocksSM)
 kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
                     long long qr, KvView kc, KvView vc, int sign_lw,
@@ -998,8 +1015,8 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   if (n_split > 1 && s0 >= live) {  // past the live tokens: a neutral partial
     for (int e = tid; e < rows * HD; e += kKvThreads) {
       const int r = e / HD, d = e % HD;
-      part_acc[(slot * rep + r0 + r) * HD + d] = 0.f;
-      if (d == 0) {
+      if (PASS != kStats) part_acc[(slot * rep + r0 + r) * HD + d] = 0.f;
+      if (d == 0 && PASS != kNormed) {
         part_ml[(slot * rep + r0 + r) * 2] = kNegInf;
         part_ml[(slot * rep + r0 + r) * 2 + 1] = 0.f;
       }
@@ -1015,6 +1032,8 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   // the four codes of one 32-bit word (the B side reads them so)
   constexpr bool BF = !std::is_same<TQ, float>::value;
   static_assert(KV_BF16 || !BF, "a bf16 q rounds K/V and p to bf16");
+  static_assert((PASS != kOnePass) == (KV_BF16 && !BF),
+                "the KV_BF16 build of an f32 q rounds p normalised");
   // the type K/V and p are rounded to before their products
   using TK = typename std::conditional<KV_BF16, __nv_bfloat16, float>::type;
   constexpr int NC = HD / 16;
@@ -1040,10 +1059,11 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   }
 
   // Tile i's tokens into stage i % S; rows past s1 are not copied (nothing
-  // reads them).  A thread copies the same chunks of the same rows of every
+  // reads them), nor V in kStats (NKV = 1: K alone).  A thread copies the same chunks of the same rows of every
   // tile, so its sources are fixed pointers, one tile further on each time.
   // Codes: 16-byte chunk cc of rows tc + k·TS.
   constexpr int CC = HD / 16, TS = kKvThreads / CC;
+  constexpr int NKV = PASS == kStats ? 1 : 2;
   const int cc = tid % CC, tc = tid / CC;
   const uint8_t* const kcp = kc.codes + b * kc.cb + g * kc.cg +
                              (long long)(s0 + tc) * kc.ct + 16 * cc;
@@ -1071,12 +1091,13 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
       if (t < n) {
         const int row = i * TT + k * TS;  // tokens past this thread's first
         cp_async16(st + t * HD + 16 * cc, kcp + (long long)row * kc.ct, 16);
-        cp_async16(st + TT * HD + t * HD + 16 * cc,
-                   vcp + (long long)row * vc.ct, 16);
+        if (PASS != kStats)
+          cp_async16(st + TT * HD + t * HD + 16 * cc,
+                     vcp + (long long)row * vc.ct, 16);
       }
     }
     unsigned char* ss = st + 2 * TT * HD;
-    for (int r = s_row; r < 2 * TT; r += kKvThreads >> cs_l) {
+    for (int r = s_row; r < NKV * TT; r += kKvThreads >> cs_l) {
       const int t = r % TT;
       if (t < n) {
         const int row = i * TT + t;
@@ -1095,7 +1116,7 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
       }
     }
     float* sl = reinterpret_cast<float*>(ss + 2 * TT * (HD / 8));
-    for (int e = tid; e < 2 * TT; e += kKvThreads) {
+    for (int e = tid; e < NKV * TT; e += kKvThreads) {
       const int t = e % TT;
       if (t < n) {
         const int row = i * TT + t;
@@ -1112,10 +1133,27 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
                                                      2 * TT * (HD / 8));
     const int n = min(TT, s1 - s0 - i * TT);
     bool ok = true;
-    for (int e = tid; e < 2 * TT; e += kKvThreads)
+    for (int e = tid; e < NKV * TT; e += kKvThreads)
       if (e % TT < n) ok = ok && sl[e] >= kKvFastScale;
     return (int)ok;
   };
+
+  // kNormed: the max M and sum L of row r0 + lane % R (the row of the p a
+  // lane computes) over every split, weighed as the combine weighs them
+  float nm = 0.f, nl = 1.f;
+  if constexpr (PASS == kNormed) {
+    const int r = lane & (R - 1);
+    if (r0 + r < rep) {
+      const float* mlp =
+          part_ml + ((long long)bg * n_split * rep + r0 + r) * 2;
+      float mx = kNegInf, sum = 0.f;
+      for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, mlp[s * rep * 2]);
+      for (int s = 0; s < n_split; ++s)
+        sum = fmaf(mlp[s * rep * 2 + 1], expf(mlp[s * rep * 2] - mx), sum);
+      nm = mx;
+      nl = fmaxf(sum, kLFloor);
+    }
+  }
 
   float m_run[R], acc[R][DPL], l_part = 0.f;
 #pragma unroll
@@ -1242,47 +1280,60 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
     }
     __syncthreads();
 
-    // the tile's max of each row (every warp the same), the new running
-    // max, and p for this warp's TW tokens: pair e = (token e / R, row e % R)
-    float mt[R];
+    if constexpr (PASS == kNormed) {
+      // p normalised, then rounded: bf16(exp(s - M) / L), as repro's
+      // softmax(s).astype(bf16)
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      mt[r] = kNegInf;
+      for (int e = lane; e < TW * R; e += 32) {
+        const int t = warp * TW + e / R;
+        p_s[t * R + e % R] =
+            round_as<TK>(expf(sc_s[(e % R) * TT + t] - nm) / nl);
+      }
+    } else {
+      // the tile's max of each row (every warp the same), the new running
+      // max, and p for this warp's TW tokens: pair e = (token e / R, row
+      // e % R)
+      float mt[R];
 #pragma unroll
-      for (int k = 0; k < TT / 32; ++k)
-        mt[r] = fmaxf(mt[r], sc_s[r * TT + lane + 32 * k]);
-    }
+      for (int r = 0; r < R; ++r) {
+        mt[r] = kNegInf;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
+        for (int k = 0; k < TT / 32; ++k)
+          mt[r] = fmaxf(mt[r], sc_s[r * TT + lane + 32 * k]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], off));
+      float alpha[R], my_m = 0.f, my_a = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float mn = fmaxf(m_run[r], mt[r]);
+        alpha[r] = expf(m_run[r] - mn);
+        m_run[r] = mn;
+        if ((lane & (R - 1)) == r) {
+          my_m = mn;
+          my_a = alpha[r];
+        }
+      }
+      l_part *= my_a;
+#pragma unroll
+      for (int e = lane; e < TW * R; e += 32) {
+        const int t = warp * TW + e / R;
+        const float pv = expf(sc_s[(e % R) * TT + t] - my_m);
+        l_part += pv;
+        if (PASS == kOnePass) p_s[t * R + e % R] = round_as<TK>(pv);
+      }
+      if constexpr (PASS == kStats) return;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], off));
-    float alpha[R], my_m = 0.f, my_a = 0.f;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float mn = fmaxf(m_run[r], mt[r]);
-      alpha[r] = expf(m_run[r] - mn);
-      m_run[r] = mn;
-      if ((lane & (R - 1)) == r) {
-        my_m = mn;
-        my_a = alpha[r];
-      }
-    }
-    l_part *= my_a;
-#pragma unroll
-    for (int e = lane; e < TW * R; e += 32) {
-      const int t = warp * TW + e / R;
-      const float pv = expf(sc_s[(e % R) * TT + t] - my_m);
-      l_part += pv;
-      p_s[t * R + e % R] = round_as<TK>(pv);
+        for (int u = 0; u < DPL; ++u) acc[r][u] *= alpha[r];
     }
     __syncwarp();
 
     // P·V over the warp's tokens
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int u = 0; u < DPL; ++u) acc[r][u] *= alpha[r];
     const int d0 = DPL * (lane % LPV);
 #pragma unroll
     for (int k = 0; k < TW; k += TPV) {
@@ -1323,22 +1374,24 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
   __syncthreads();  // the ring is free: the sums meet in its bytes
 
   float* red = reinterpret_cast<float*>(ring);  // [warps][R][HD]
+  if constexpr (PASS != kStats) {
 #pragma unroll
-  for (int off = LPV; off < 32; off <<= 1)
+    for (int off = LPV; off < 32; off <<= 1)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int u = 0; u < DPL; ++u)
-        acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
-  if (lane < LPV) {
-    const int d0 = DPL * lane;
+        for (int u = 0; u < DPL; ++u)
+          acc[r][u] += __shfl_xor_sync(0xffffffffu, acc[r][u], off);
+    if (lane < LPV) {
+      const int d0 = DPL * lane;
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < DPL / 4; ++c)
-        *reinterpret_cast<float4*>(red + (warp * R + r) * HD + d0 + 4 * c) =
-            make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
-                        acc[r][4 * c + 3]);
+        for (int c = 0; c < DPL / 4; ++c)
+          *reinterpret_cast<float4*>(red + (warp * R + r) * HD + d0 + 4 * c) =
+              make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                          acc[r][4 * c + 3]);
+    }
   }
 #pragma unroll
   for (int off = R; off < 32; off <<= 1)
@@ -1349,6 +1402,16 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
     for (int r = 0; r < R; ++r) m_s[r] = m_run[r];
   __syncthreads();
 
+  if constexpr (PASS == kStats) {
+    for (int r = tid; r < rows; r += kKvThreads) {
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kKvWarps; ++w) l += l_s[w * R + r];
+      part_ml[(slot * rep + r0 + r) * 2] = m_s[r];
+      part_ml[(slot * rep + r0 + r) * 2 + 1] = l;
+    }
+    return;
+  }
   for (int e = tid; e < rows * HD; e += kKvThreads) {
     const int r = e / HD, d = e % HD;
     float s = 0.f, l = 0.f;
@@ -1357,7 +1420,12 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
       s += red[(w * R + r) * HD + d];
       l += l_s[w * R + r];
     }
-    if (n_split == 1) {
+    if (PASS == kNormed) {  // normalised already
+      if (n_split == 1)
+        out[((long long)bg * rep + r0 + r) * HD + d] = s;
+      else
+        part_acc[(slot * rep + r0 + r) * HD + d] = s;
+    } else if (n_split == 1) {
       out[((long long)bg * rep + r0 + r) * HD + d] = s / fmaxf(l, kLFloor);
     } else {
       part_acc[(slot * rep + r0 + r) * HD + d] = s;
@@ -1371,13 +1439,21 @@ kvdq_partial_kernel(const TQ* __restrict__ q, long long qb, long long qg,
 
 // The partials of every split combined by their maxima (flash-decoding); a
 // neutral partial (m = -2^30, l = 0, P·V = 0) weighs exp(-2^30 - max) = 0.
+// `summed`: kNormed's partials, normalised already, are added in split order.
 __global__ void __launch_bounds__(kKvThreads)
 kvdq_combine_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml, float* __restrict__ out,
-                    int n_split, int rep, int hd) {
+                    int n_split, int rep, int hd, int summed) {
   const int bg = blockIdx.x;
   for (int e = threadIdx.x; e < rep * hd; e += kKvThreads) {
     const int r = e / hd, d = e % hd;
+    if (summed) {
+      float a = 0.f;
+      for (int s = 0; s < n_split; ++s)
+        a += part_acc[(((long long)bg * n_split + s) * rep + r) * hd + d];
+      out[((long long)bg * rep + r) * hd + d] = a;
+      continue;
+    }
     const float* mlp = part_ml + ((long long)bg * n_split * rep + r) * 2;
     float mx = kNegInf;
     for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, mlp[s * rep * 2]);
@@ -1403,13 +1479,19 @@ int sign_log_width(const KvView& v, int hd) {
   return 1;
 }
 
-template <int HD, typename TQ, bool KV_BF16>
-cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
-                        const KvView& vc, float* out, float* part_acc,
-                        float* part_ml, int B, int G, int rep, const int* pos,
-                        int T, int n_split, int max_split,
-                        cudaStream_t stream) {
-  constexpr auto kernel = kvdq_partial_kernel<HD, TQ, KV_BF16>;
+// The KV_BF16 build of an f32 q rounds p normalised: two passes (KvPass)
+template <typename TQ, bool KV_BF16>
+constexpr bool kv_normed() {
+  return KV_BF16 && std::is_same<TQ, float>::value;
+}
+
+template <int HD, typename TQ, bool KV_BF16, int PASS>
+cudaError_t launch_kvdq_pass(const void* q, const long long* qst,
+                             const KvView& kc, const KvView& vc, float* out,
+                             float* part_acc, float* part_ml, int B, int G,
+                             int rep, const int* pos, int T, int n_split,
+                             int max_split, cudaStream_t stream) {
+  constexpr auto kernel = kvdq_partial_kernel<HD, TQ, KV_BF16, PASS>;
   const int smem = kv_smem_bytes<HD>();
   cudaError_t err = smem_once<kernel>(smem);
   if (err != cudaSuccess) return err;
@@ -1420,10 +1502,33 @@ cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
       static_cast<const TQ*>(q), qst[0], qst[1], qst[2], kc, vc,
       sw < vw ? sw : vw, out, part_acc, part_ml, G, rep, n_rb, pos, T,
       max_split, 1.0f / sqrtf((float)HD), 16.0f / 254.0f);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int HD, typename TQ, bool KV_BF16>
+cudaError_t launch_kvdq(const void* q, const long long* qst, const KvView& kc,
+                        const KvView& vc, float* out, float* part_acc,
+                        float* part_ml, int B, int G, int rep, const int* pos,
+                        int T, int n_split, int max_split,
+                        cudaStream_t stream) {
+  constexpr bool NORMED = kv_normed<TQ, KV_BF16>();
+  cudaError_t err;
+  if constexpr (NORMED) {
+    err = launch_kvdq_pass<HD, TQ, KV_BF16, kStats>(
+        q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split,
+        max_split, stream);
+    if (err != cudaSuccess) return err;
+    err = launch_kvdq_pass<HD, TQ, KV_BF16, kNormed>(
+        q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split,
+        max_split, stream);
+  } else {
+    err = launch_kvdq_pass<HD, TQ, KV_BF16, kOnePass>(
+        q, qst, kc, vc, out, part_acc, part_ml, B, G, rep, pos, T, n_split,
+        max_split, stream);
+  }
   if (err != cudaSuccess || n_split == 1) return err;
   kvdq_combine_kernel<<<(unsigned)(B * G), kKvThreads, 0, stream>>>(
-      part_acc, part_ml, out, n_split, rep, HD);
+      part_acc, part_ml, out, n_split, rep, HD, (int)NORMED);
   return cudaGetLastError();
 }
 
@@ -1446,7 +1551,9 @@ cudaError_t dispatch_kvdq(const void* q, const long long* qst,
 template <int HD, typename TQ, bool KV_BF16>
 int kvdq_slots() {
   int dev = 0, sms = 0, per_sm = 0;
-  constexpr auto kernel = kvdq_partial_kernel<HD, TQ, KV_BF16>;
+  constexpr auto kernel =
+      kvdq_partial_kernel<HD, TQ, KV_BF16,
+                          kv_normed<TQ, KV_BF16>() ? kNormed : kOnePass>;
   const int smem = kv_smem_bytes<HD>();
   cudaError_t err = smem_once<kernel>(smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -1555,7 +1662,8 @@ int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
 
 // B11.  q (B, G, rep, hd) f32 or bf16 (bf16 = 1); kv_bf16 = 1 rounds the
 // dequantized K/V and p to bf16 for an f32 q too (a bf16 q always rounds
-// them); each cache operand (B, G, T, ·):
+// them), p after its normalisation in two passes (part_ml then holds the
+// splits' maxima and sums whatever n_split); each cache operand (B, G, T, ·):
 // codes uint8 (·, hd) with 16-byte aligned rows, signs uint8 (·, hd/8) with
 // 2-byte aligned rows, scale f32 (·, 1); out (B, G, rep, hd) f32
 // contiguous; hd in {16, 32, 64, 128, 256}; pos one int32 in device memory.
@@ -1576,7 +1684,8 @@ int kv_dequant_decode_attention_fwd(
   if (batch <= 0 || kv_heads <= 0 || rep <= 0 || T <= 0 || hd < 16 ||
       hd > 256 || (hd & (hd - 1)) || n_split <= 0 || max_split < n_split ||
       pos == nullptr || (n_split > 1 && (part_acc == nullptr ||
-                                         part_ml == nullptr)))
+                                         part_ml == nullptr)) ||
+      (kv_bf16 && !bf16 && part_ml == nullptr))
     return (int)cudaErrorInvalidValue;
   const KvView kc = make_view(ck, ck_st, sk, sk_st, lk, lk_st);
   const KvView vc = make_view(cv, cv_st, sv, sv_st, lv, lv_st);

@@ -27,7 +27,9 @@ decode rounds them (the kernel rounds the unnormalised probabilities,
 relative to a block's running max, its plain version the normalised ones;
 see ``csrc/attention.cu``).  ``kv_dtype=torch.bfloat16`` rounds them so for
 a float32 q too (the kernel's ``KV_BF16`` build): ``repro``'s serving decode
-dequantizes the cache to bfloat16 whatever the model's dtype.  The default,
+dequantizes the cache to bfloat16 whatever the model's dtype.  That build
+rounds the normalised probabilities, as ``repro`` and the plain version do,
+in two passes over K (the row's max and sum first).  The default,
 ``None``, keeps a float32 q's products in float32 throughout, the Pallas
 kernel's semantics.  On
 a CUDA tensor both launch the hand-written Hopper kernel in
@@ -213,6 +215,9 @@ def _launch(q: torch.Tensor, cache: tuple, pos: torch.Tensor,
     if n_split > 1:
         part_acc = torch.empty((B * G, n_split, rep, hd), dtype=torch.float32,
                                device=dev)
+    # the KV_BF16 build of an f32 q keeps every split's (max, sum) for its
+    # second pass, whatever n_split
+    if n_split > 1 or (kv_bf16 and q.dtype == torch.float32):
         part_ml = torch.empty((B * G, n_split, rep, 2), dtype=torch.float32,
                               device=dev)
     args = []

@@ -407,11 +407,16 @@ def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
     rounded to bf16 unnormalised, and K/V rounded to bf16, as
     :func:`kv_dequant_decode_attention_ref` rounds them), the sum of the
     unrounded p and the accumulator rescaled by exp(m - m_new); the spans
-    combined by their maxima.  ``kv_dtype=torch.bfloat16`` rounds K/V and p
-    so for an f32 q too (the kernel's ``KV_BF16`` build).  Dot products and sums are f64, where the
-    kernel's are f32 in its own order: the two differ by f32 rounding and
-    by the odd p that rounds to its other bf16 neighbour."""
+    combined by their maxima.  ``kv_dtype=torch.bfloat16`` with an f32 q
+    (the kernel's ``KV_BF16`` build) rounds K/V so too, and p after its
+    normalisation, as the build's two passes do: the spans' running max and
+    sum combined to the row's max M and sum L (f32, the combine's
+    weights), p = bf16(exp(s - M) / L) in f32, and the spans' P·V added.
+    Dot products and sums are f64, where the kernel's are f32 in its own
+    order: the two differ by f32 rounding and by the odd p that rounds to
+    its other bf16 neighbour."""
     bf = _rounds_kv(q, kv_dtype)
+    normed = bf and q.dtype != torch.bfloat16
 
     def cast(x):
         return (x.bfloat16() if bf else x).double()
@@ -439,6 +444,11 @@ def kv_dequant_decode_attention_tiled_ref(q, codes_k, signs_k, scale_k,
         ms.append(m)
         ls.append(l)
         accs.append(acc)
+    if normed:
+        M = torch.stack(ms).amax(0)
+        L = sum(l.float() * torch.exp(m - M) for m, l in zip(ms, ls))
+        p = torch.exp(s - M) / L.clamp(min=1e-30)
+        return (cast(p) @ v).float()
     return kv_combine_ref(ms, ls, accs).float()
 
 

@@ -540,9 +540,10 @@ def test_cuda_kvdq_kernel_matches_its_plain_version(card, BG, T, hd, rep,
 def test_cuda_kvdq_kv_bf16_build_matches_its_plain_version(card, B, T, G,
                                                            rep, hd, pos):
     """The f32-q build that rounds K/V and p to bf16 (``KV_BF16``, what
-    the compressed decode of an f32 model launches) against its plain
-    version within the bf16 bound, and within 2^-15·max|v| of the plain
-    version in the kernel's order on the kernel's own spans."""
+    the compressed decode of an f32 model launches; p normalised, in two
+    passes) against its plain version within the bf16 bound, and within
+    2^-15·max|v| of the plain version in the kernel's order on the
+    kernel's own spans."""
     from repro_torch.serving.kvcache import quantize_kv
     g = torch.Generator(device=card).manual_seed(T + hd)
     q = torch.randn((B, 1, G * rep, hd), generator=g, device=card)
