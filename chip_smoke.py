@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--device-qubits N] [--seed S]
+    python3 chip_smoke.py [--profile] [--device-qubits N]
+                          [--device-skip-gates G] [--seed S]
 
 Phases, in order (any failure exits non-zero and prints no result):
 
@@ -92,7 +93,8 @@ Phases, in order (any failure exits non-zero and prints no result):
 5. main         — repro_torch.Simulator(build_circuit("qft", 26),
                   EngineConfig()).run() on cuda:0 (host codec, default
                   planning).
-6. main_device  — the same for qft-28 with
+6. main_device  — the same for qft-28 less its first 70 gates (a depth
+                  cut: 15 of qft-28's 32 stages, every op kind kept) with
                   EngineConfig(codec_backend="device") (--device-qubits
                   sets another size, e.g. 26 to compare the two codecs at
                   one size): the codec runs in the encode/decode kernels.
@@ -145,11 +147,27 @@ Phases, in order (any failure exits non-zero and prints no result):
                   a store.spill_read corruption detected and replayed
                   (n_replays >= 1) to the same state.  Prints walls,
                   checkpoint bytes, replays and emergency checkpoints.
-12. cli         — python -m repro_torch.launch.qsim --circuit qft
+12. multidevice — several devices as slots of cuda:0 (paper §4.2):
+                  qft-26 on the device codec block-sharded over 4 slots,
+                  bit for bit the one-slot run, fidelity >= 0.99, the
+                  exchange ledger's blocks equal to a recount from the
+                  plan's layouts and device_slot, 0 < exchange bytes <
+                  the moved blocks' raw bytes, stage sums = total with
+                  stage 0 free, boundary bytes and launches equal to the
+                  one-slot run's; noisy qft-20 x 8 trajectories on the
+                  host codec lane-sharded over 2 slots, every lane bit
+                  for bit and every launch count as on one slot, nothing
+                  exchanged; a pipeline.exchange crash at qft-16 on 2
+                  slots resumed bit for bit;
+                  simulate_dense_sharded(qft-26) over 4 slots within
+                  1e-6 of simulate_dense.
+13. cli         — python -m repro_torch.launch.qsim --circuit qft
                   --qubits 20 --noise 0.02 --trajectories 4
                   --codec-backend device --expect zsum as a subprocess:
-                  exit 0, the batched-run line and the average printed.
-13. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
+                  exit 0, the batched-run line and the average printed;
+                  then qsim --devices 2 on the device codec: exit 0, the
+                  slots line and an exchange line with hand-offs.
+14. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
                   drawn on cuda:0 from --seed): make_prefill_step on 8
                   random prompts of 2,048 tokens with max_len 4,096 (36
                   flash_attention launches), compress_prefill_cache, then
@@ -169,7 +187,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   decode ms a step and tokens/s of both runs, the weights'
                   read time at 3.35 TB/s, peak device memory (and with
                   --profile each run's device busy and idle share).
-14. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
+15. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
                   sliding-window ones of W 1,024 and 8 global, hd 256;
                   11.8 B bf16 weights drawn after qwen3-4b's are freed),
                   the same prompts: prefill longer than the window (48
@@ -177,7 +195,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   are rings of 1,024), 16 captured compressed decode steps
                   (48 B11 a step), the plain teacher-forced run within
                   2e-2, cache >= 1.7x smaller than bf16.
-15. report      — one JSON line of kernels, the card's name and power
+16. report      — one JSON line of kernels, the card's name and power
                   limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
@@ -196,6 +214,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_QUBITS = 26                 # host codec path
 DEVICE_QUBITS = 28               # device codec path
+#: main_device's depth cut (PR 24, keeping the smoke's length with the
+#: multidevice phase added): the QFT less its first 70 gates (the top
+#: qubits' first rows), 15 stages of qft-28's 32 with every op kind kept
+#: (GemmOps, MidGemmOps, diagonals); still 28 qubits wide
+DEVICE_SKIP_GATES = 70
 FIDELITY_MIN = 0.99
 RTOL, ATOL = 1e-5, 1e-6          # f32 summation order differs from cuBLAS
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
@@ -238,6 +261,16 @@ PRECISION_DENSE_QUBITS = 20      # precision: simulate_dense with TF32 on
 RESILIENCE_CIRCUIT = ("ising", 24)
 RESILIENCE_EVERY = 2
 RESILIENCE_RAM = 1 << 20
+#: multidevice: qft-26 block-sharded over 4 slots of cuda:0 on the device
+#: codec, noisy qft-20 x 8 trajectories lane-sharded over 2 slots on the
+#: host codec, a pipeline.exchange crash at qft-16 on 2 slots, and the
+#: sharded dense baseline at 26 qubits over 4 slots
+MULTI_QUBITS = 26
+MULTI_SLOTS = 4
+MULTI_LANE_QUBITS = 20
+MULTI_LANE_SLOTS = 2
+MULTI_CRASH_QUBITS = 16          # the same 8 stages and 48 hand-offs as 20
+MULTI_DENSE_ATOL = 1e-6
 ATTN_ATOL = 2e-4                 # B10/B11 vs plain, the Pallas tests' bound
 BF16_RTOL = 2.0 ** -7            # one bf16 step: ulp(x) <= 2^-7 |x|
 KV_ORDER_TOL = 2.0 ** -15        # of max|v|: B11 vs its plain version in its
@@ -1050,8 +1083,10 @@ def kvdq_check(got, q, cache, pos: int, shape: dict, kv_dtype=None) -> dict:
     """B11's output ``got`` for q (..., rep, hd) and cache leaves (..., T,
     .) against its plain version: an f32 q within ATTN_ATOL.  A bf16 q, or
     an f32 q with ``kv_dtype`` bf16 (the ``KV_BF16`` build, rounded as a
-    bf16 q is but with QK^T as f32 FMAs), twice: within the bf16 bound (:func:`bf16_atol`; the kernel rounds p
-    unnormalised against its running max, the plain version normalised),
+    bf16 q is but with QK^T as f32 FMAs and p normalised, in two passes),
+    twice: within the bf16 bound (:func:`bf16_atol`; the bf16-q kernel
+    rounds p unnormalised against its running max, the plain version
+    normalised),
     and against the plain version in the kernel's own order
     (ref.kv_dequant_decode_attention_tiled_ref on the spans and tiles the
     kernel launched with) within KV_ORDER_TOL max|v|.  That one differs
@@ -1665,25 +1700,29 @@ def expected_launches(sim, backend: str, gate_schedule: bool) -> dict:
 
 
 def main_phase(label: str, qubits: int, backend: str, profile: bool,
-               gate_schedule: bool = True) -> dict:
+               gate_schedule: bool = True, skip_gates: int = 0) -> dict:
     """Drive Simulator(build_circuit("qft", qubits),
     EngineConfig(codec_backend=backend, gate_schedule=...)).run() on
     cuda:0 with every launch count set to 0 just before and read just
     after; check the launches, the state against the dense oracle and
-    read it out.  Returns the launches."""
+    read it out.  ``skip_gates`` drops the QFT's first gates (a depth
+    cut).  Returns the launches."""
     import numpy as np
     import torch
     from repro_torch import (EngineConfig, Simulator, build_circuit,
                              fidelity, zsum_cost_fn)
+    from repro_torch.core.circuit import Circuit
     from repro_torch.core.dense_engine import simulate_dense
 
     circuit = build_circuit("qft", qubits)
+    circuit = Circuit(qubits, circuit.gates[skip_gates:])
     torch.cuda.reset_peak_memory_stats()
     sim = Simulator(circuit, EngineConfig(codec_backend=backend,
                                           gate_schedule=gate_schedule))
     plan = sim.compile()
     want = expected_launches(sim, backend, gate_schedule)
-    print(f"{label}_plan qft-{qubits} codec={backend} "
+    print(f"{label}_plan qft-{qubits} skip_gates={skip_gates} "
+          f"gates={len(circuit.gates)} codec={backend} "
           f"gate_schedule={gate_schedule} "
           f"local_bits={plan.local_bits} stages={plan.n_stages} "
           f"depth={plan.pipeline_depth} device={sim._engine.device} "
@@ -2064,6 +2103,196 @@ def precision_phase() -> None:
              "TF32 on")
 
 
+def _plan_exchange(plan) -> tuple[int, list[int]]:
+    """The blocks that change owners at the stage boundaries, recounted
+    on the host from the plan artifact alone (each stage's layout and its
+    StagePlan.device_slot): the total, and the moved keys a stage."""
+    owners: dict[int, int] = {}
+    moved = []
+    for sp in plan.stages:
+        if not sp.plan:
+            continue
+        keys = 0
+        for g, row in enumerate(sp.layout.group_block_ids()):
+            slot = sp.device_slot(g)
+            for k in row.tolist():
+                keys += owners.get(k, slot) != slot
+                owners[k] = slot
+        moved.append(keys)
+    return sum(moved), moved
+
+
+def multidevice_phase() -> dict:
+    """Several devices (paper §4.2) on one card, as D slots of cuda:0.
+    Block sharding: qft-26 on the device codec over 4 slots against the
+    one-slot run: the state bit for bit, fidelity >= 0.99 against the
+    dense oracle, the exchange ledger's block count equal to a recount
+    from the plan, 0 < exchange bytes < the moved blocks' raw bytes, the
+    stages summing to the total with stage 0 free, boundary bytes and
+    every launch count equal to the one-slot run's.  Lane sharding: noisy
+    qft-20, 8 trajectories, host codec, over 2 slots: every lane bit for
+    bit the one-slot run's, every launch count equal to it (the two slots
+    are one card, so the one-device waves), nothing exchanged.  Then a
+    pipeline.exchange crash two thirds of the way through qft-16's
+    hand-offs on 2 slots,
+    resumed bit for bit, and simulate_dense_sharded at 26 qubits over 4
+    slots against simulate_dense within MULTI_DENSE_ATOL.  Returns the
+    block-sharded run's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import (EngineConfig, InjectedCrash, Simulator,
+                             build_circuit, fidelity, inject_faults,
+                             with_depolarizing)
+    from repro_torch.core.dense_engine import (simulate_dense,
+                                               simulate_dense_sharded)
+    label = "multidevice"
+    card = torch.device("cuda", 0)
+    out, walls = {}, {}
+
+    # block sharding
+    qc = build_circuit("qft", MULTI_QUBITS)
+    runs = {}
+    for slots in (1, MULTI_SLOTS):
+        with Simulator(qc, EngineConfig(codec_backend="device",
+                                        devices=[card] * slots)) as sim:
+            plan = sim.compile()
+            reset_counts()
+            t0 = time.perf_counter()
+            result = sim.run()
+            torch.cuda.synchronize()
+            walls[f"block_{slots}"] = time.perf_counter() - t0
+            st = sim.stats
+            runs[slots] = {
+                "launches": read_counts(), "plan": plan,
+                "state": result.statevector(force=True),
+                "boundary": (st.h2d_bytes, st.d2h_bytes),
+                "n_exchanged_blocks": st.n_exchanged_blocks,
+                "exchange_bytes": st.exchange_bytes,
+                "per_stage": list(st.per_stage_exchange_bytes)}
+    one, many = runs[1], runs[MULTI_SLOTS]
+    recount, per_stage_keys = _plan_exchange(many["plan"])
+    raw = many["n_exchanged_blocks"] * (1 << many["plan"].local_bits) * 8
+    state = torch.from_numpy(many["state"]).to(card)
+    ideal = simulate_dense(qc, device=card)
+    fid = fidelity(ideal, state)
+    del state
+    out["block"] = {
+        "circuit": f"qft-{MULTI_QUBITS}", "codec": "device",
+        "slots": MULTI_SLOTS, "n_devices": many["plan"].n_devices,
+        "local_bits": many["plan"].local_bits,
+        "bitwise_equal": bool(np.array_equal(one["state"], many["state"])),
+        "fidelity": fid, "n_exchanged_blocks": many["n_exchanged_blocks"],
+        "plan_recount": recount, "plan_recount_per_stage": per_stage_keys,
+        "exchange_bytes": many["exchange_bytes"], "raw_bytes": raw,
+        "per_stage_exchange_bytes": many["per_stage"],
+        "boundary_bytes": many["boundary"],
+        "boundary_equal": many["boundary"] == one["boundary"],
+        "launches": many["launches"],
+        "launches_equal": many["launches"] == one["launches"]}
+    b = out["block"]
+    checks = {
+        "bitwise": b["bitwise_equal"], "fidelity": fid >= FIDELITY_MIN,
+        "recount": b["n_exchanged_blocks"] == recount > 0,
+        "bytes": 0 < b["exchange_bytes"] < raw,
+        "stages": (sum(b["per_stage_exchange_bytes"]) == b["exchange_bytes"]
+                   and b["per_stage_exchange_bytes"][0] == 0),
+        "boundary": b["boundary_equal"], "launches": b["launches_equal"],
+        "launched": all(b["launches"][k] > 0 for k in (
+            "gemm_planes_batch", "gemm_planes_mid_batch", "encode",
+            "decode")),
+        "one_slot_free": one["n_exchanged_blocks"] == 0}
+    del runs, one, many
+
+    # lane sharding
+    noisy = with_depolarizing(build_circuit("qft", MULTI_LANE_QUBITS),
+                              BATCH_NOISE)
+    lanes = {}
+    for slots in (1, MULTI_LANE_SLOTS):
+        with Simulator(noisy, EngineConfig(devices=[card] * slots)) as sim:
+            reset_counts()
+            t0 = time.perf_counter()
+            batch = sim.run(trajectories=BATCH_LANES, seed=0)
+            torch.cuda.synchronize()
+            walls[f"lanes_{slots}"] = time.perf_counter() - t0
+            lanes[slots] = ([lane.statevector() for lane in batch],
+                            sim.stats.exchange_bytes,
+                            sim.stats.n_exchanged_blocks, read_counts())
+    equal = [bool(np.array_equal(a, c)) for a, c in
+             zip(lanes[1][0], lanes[MULTI_LANE_SLOTS][0])]
+    out["lanes"] = {"circuit": f"noisy qft-{MULTI_LANE_QUBITS}",
+                    "trajectories": BATCH_LANES, "codec": "host",
+                    "slots": MULTI_LANE_SLOTS, "lanes_bitwise_equal": equal,
+                    "exchange_bytes": lanes[MULTI_LANE_SLOTS][1],
+                    "n_exchanged_blocks": lanes[MULTI_LANE_SLOTS][2],
+                    "launches": lanes[MULTI_LANE_SLOTS][3],
+                    "launches_equal": lanes[1][3] == lanes[MULTI_LANE_SLOTS][3]}
+    checks["lanes"] = all(equal) and len(equal) == BATCH_LANES
+    checks["lanes_free"] = lanes[MULTI_LANE_SLOTS][1:3] == (0, 0)
+    checks["lanes_launches"] = out["lanes"]["launches_equal"]
+    del lanes
+
+    # a crash at a block hand-off, resumed from the last checkpoint
+    t0 = time.perf_counter()
+    qc16 = build_circuit("qft", MULTI_CRASH_QUBITS)
+
+    def cfg():
+        return EngineConfig(devices=[card] * MULTI_LANE_SLOTS)
+
+    never = 1 << 40
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        ck = os.path.join(tmp, "ck.bmq")
+        with inject_faults([f"pipeline.exchange:ioerror:hit={never}"]) \
+                as inj:
+            with Simulator(qc16, cfg()) as sim:
+                want = sim.run().statevector()
+                n_stages = sim.stats.n_stages
+            hits = inj._hits["pipeline.exchange"]
+        crash_hit = 2 * hits // 3
+        crashed = False
+        with inject_faults([f"pipeline.exchange:crash:hit={crash_hit}"]) \
+                as inj:
+            with Simulator(qc16, cfg()) as sim:
+                try:
+                    sim.run(checkpoint_path=ck, checkpoint_every=1)
+                except InjectedCrash:
+                    crashed = True
+            fired = inj.fired["pipeline.exchange:crash"]
+        start = None
+        resumed_equal = False
+        if crashed and os.path.exists(ck):
+            with Simulator.resume(ck, circuit=qc16, config=cfg()) as sim:
+                start = sim._start_stage
+                resumed_equal = bool(np.array_equal(
+                    sim.run().statevector(), want))
+    walls["crash"] = time.perf_counter() - t0
+    out["crash"] = {"circuit": f"qft-{MULTI_CRASH_QUBITS}",
+                    "slots": MULTI_LANE_SLOTS, "exchange_hits": hits,
+                    "crash_hit": crash_hit, "fired": fired,
+                    "resumed_from_stage": start, "stages": n_stages,
+                    "resumed_bitwise_equal": resumed_equal}
+    checks["crash"] = (crashed and fired == 1 and start is not None
+                       and 0 < start < n_stages and resumed_equal)
+
+    # the sharded dense baseline
+    t0 = time.perf_counter()
+    slices = simulate_dense_sharded(qc, [card] * MULTI_SLOTS)
+    torch.cuda.synchronize()
+    walls["dense_sharded"] = time.perf_counter() - t0
+    err = float((torch.cat(slices) - ideal).abs().max())
+    del slices, ideal
+    out["dense_sharded"] = {"qubits": MULTI_QUBITS, "slots": MULTI_SLOTS,
+                            "max_abs_err": err, "atol": MULTI_DENSE_ATOL}
+    checks["dense_sharded"] = err <= MULTI_DENSE_ATOL
+    print(f"{label}_check " + json.dumps({**out, "walls_s": walls,
+                                          "checks": checks}), flush=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"{label}: {bad} did not hold ({json.dumps(out)[:3000]})")
+    return b["launches"]
+
+
 def resilience_phase() -> None:
     """Resilience on the card, device codec, the disk tier forced: a
     checkpointed ising-24 run (RESILIENCE_CIRCUIT) counting the fault
@@ -2166,28 +2395,47 @@ CLI_ARGS = ["--circuit", "qft", "--qubits", "20", "--noise", "0.02",
             "--expect", "zsum"]
 
 
-def cli_phase() -> None:
-    """``python -m repro_torch.launch.qsim`` with noise trajectories as a
-    subprocess on the card: it must exit 0 and print the batched-run
-    line and the trajectory average."""
+CLI_DEVICES_ARGS = ["--circuit", "qft", "--qubits", "20", "--devices",
+                    "2", "--codec-backend", "device"]
+
+
+def _qsim(argv: list) -> tuple:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(HERE, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.qsim"] + CLI_ARGS,
+        [sys.executable, "-m", "repro_torch.launch.qsim"] + argv,
         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     lines = out.stdout.splitlines()
-    batched = [ln for ln in lines if ln.startswith("[qsim] batched run:")]
-    zsum = [ln for ln in lines if ln.startswith("[qsim] <sum Z_i>")]
     print("cli_check " + json.dumps({
-        "argv": CLI_ARGS, "rc": out.returncode, "wall_s": wall,
+        "argv": argv, "rc": out.returncode, "wall_s": wall,
         "lines": lines[-12:]}), flush=True)
     if out.returncode != 0:
         fail(f"qsim exited {out.returncode}: {out.stderr.strip()[-2000:]}")
+    return lines
+
+
+def cli_phase() -> None:
+    """``python -m repro_torch.launch.qsim`` as a subprocess on the card,
+    with noise trajectories (it must exit 0 and print the batched-run
+    line and the trajectory average) and with ``--devices 2`` (exit 0,
+    the slots line naming one physical device and an exchange line with
+    hand-offs)."""
+    lines = _qsim(CLI_ARGS)
+    batched = [ln for ln in lines if ln.startswith("[qsim] batched run:")]
+    zsum = [ln for ln in lines if ln.startswith("[qsim] <sum Z_i>")]
     if not batched or not zsum:
         fail("qsim printed no batched-run line or no trajectory average")
+    lines = _qsim(CLI_DEVICES_ARGS)
+    slots = [ln for ln in lines if ln.startswith(
+        "[qsim] 2 device slots on 1 physical device(s): cuda:0")]
+    moved = [ln for ln in lines if ln.startswith(
+        "[qsim] device exchange (2 devices):")]
+    if not slots or not moved or moved[0].endswith(" 0 block hand-off(s)"):
+        fail("qsim --devices 2 printed no slots line or no exchange line "
+             "with hand-offs")
 
 
 # -- phases 13-14: LLM serving on the compressed KV cache --------------------
@@ -2524,6 +2772,10 @@ def main() -> int:
                     help="trace the main paths' device time")
     ap.add_argument("--device-qubits", type=int, default=DEVICE_QUBITS,
                     help="qubits of the device-codec path (default 28)")
+    ap.add_argument("--device-skip-gates", type=int,
+                    default=DEVICE_SKIP_GATES,
+                    help="first QFT gates the device-codec path leaves out "
+                         f"(default {DEVICE_SKIP_GATES}; 0 runs it whole)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve phase's weights and prompts")
     args = ap.parse_args()
@@ -2575,7 +2827,8 @@ def main() -> int:
     launches["main"] = timed("main", main_phase("main", MAIN_QUBITS, "host",
                                                 args.profile))
     launches["main_device"] = timed("main_device", main_phase(
-        "main_device", args.device_qubits, "device", args.profile))
+        "main_device", args.device_qubits, "device", args.profile,
+        skip_gates=args.device_skip_gates))
     launches["main_pergate"] = timed("main_pergate", main_phase(
         "main_pergate", MAIN_QUBITS, "device", args.profile,
         gate_schedule=False))
@@ -2583,6 +2836,7 @@ def main() -> int:
     launches["service"] = timed("service", service_phase())
     timed("precision", precision_phase())
     timed("resilience", resilience_phase())
+    launches["multidevice"] = timed("multidevice", multidevice_phase())
     timed("cli", cli_phase())
     launches["serve"] = timed("serve", serve_phase(
         "serve", SERVE_ARCH, SERVE_STEPS, args.seed, args.profile,

@@ -6,7 +6,9 @@ and the fidelity numbers are validated against it.  Everything runs on the
 device the state lives on: ``cuda:0`` unless the caller passes ``device``
 (or an ``initial`` state) elsewhere.
 
-The sharded baseline (``simulate_dense_sharded``) is not ported yet.
+``simulate_dense_sharded`` is the SV-Sim-like baseline: the state split
+over several devices, with explicit exchanges where a gate touches a
+sharded qubit.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ __all__ = [
     "apply_matrix",
     "initial_state",
     "simulate_dense",
+    "simulate_dense_sharded",
 ]
 
 
@@ -72,3 +75,62 @@ def simulate_dense(circuit: Circuit, dtype=torch.complex64,
         for gate in circuit.gates:
             state = apply_matrix(state, gate.matrix, gate.qubits, n)
     return state
+
+
+def simulate_dense_sharded(circuit: Circuit, devices,
+                           dtype=torch.complex64) -> list[torch.Tensor]:
+    """SV-Sim-like baseline: the state split over ``devices``.
+
+    D = ``len(devices)`` must divide 2^n (a power of two, at most 2^n).
+    The D slices shard the most significant log2(D) qubits: slice d, on
+    ``devices[d]`` (which may repeat), holds amplitudes [d·2^n/D,
+    (d+1)·2^n/D).  A gate on local qubits applies to every slice in place
+    of the whole state.  A gate touching j sharded qubits exchanges
+    explicitly: each group of 2^j slices that differ only in those qubits
+    moves to the device of its first slice, the gate applies there to the
+    group as one state of n - log2(D) + j qubits, and the slices move back
+    (for one sharded target, slice pairs): the communication that BMQSIM's
+    independent SV groups avoid.  Products run in full f32 as
+    :func:`simulate_dense`'s do.  Returns the D slices in order;
+    ``torch.cat`` of them (on one device) is the flat 2^n state.
+    """
+    n = circuit.n_qubits
+    devs = [torch.device(d) for d in devices]
+    D = len(devs)
+    if D < 1 or D & (D - 1) or D > 2 ** n:
+        raise ValueError(f"{D} devices do not divide a state of 2^{n} "
+                         "amplitudes (want a power of two <= 2^n)")
+    nl = n - (D.bit_length() - 1)              # qubits local to a slice
+    slices = []
+    for d, dev in enumerate(devs):
+        x = torch.zeros((2 ** nl,), dtype=dtype, device=dev)
+        if d == 0:
+            x[0] = 1.0
+        slices.append(x)
+    with torch.no_grad():
+        for gate in circuit.gates:
+            hi = [q for q in gate.qubits if q >= nl]
+            if not hi:
+                slices = [apply_matrix(x, gate.matrix, gate.qubits, nl)
+                          for x in slices]
+                continue
+            # sharded target i becomes local qubit nl + i of the group
+            bits = [q - nl for q in hi]
+            mask = sum(1 << b for b in bits)
+            local = tuple(nl + hi.index(q) if q in hi else q
+                          for q in gate.qubits)
+            out = list(slices)
+            for base in range(D):
+                if base & mask:
+                    continue
+                members = [base | sum(((c >> i) & 1) << b
+                                      for i, b in enumerate(bits))
+                           for c in range(2 ** len(bits))]
+                home = devs[base]
+                group = torch.cat([slices[d].to(home) for d in members])
+                group = apply_matrix(group, gate.matrix, local,
+                                     nl + len(bits))
+                for c, d in enumerate(members):
+                    out[d] = group[c * 2 ** nl:(c + 1) * 2 ** nl].to(devs[d])
+            slices = out
+    return slices

@@ -30,8 +30,15 @@ A batch of lanes (parameter-sweep points or noise trajectories,
 groups is ``d·L`` rows, groups-major, and each ``GemmOp`` is one
 ``gemm_planes_batch`` launch with one operand per lane.
 
-This is the PyTorch port of ``repro.core.engine`` on one device; several
-devices raise ``NotImplementedError`` until they are ported.
+Several devices (paper §4.2, multi-GPU; ``config.devices`` or
+``mesh_shape``): a batched run lane-shards over them, each device taking a
+contiguous slice of the lanes, and a single run block-shards its groups by
+the plan's ``device_slot`` round-robin, with an exchange ledger of the
+encoded blocks that change owners at each stage boundary
+(:mod:`repro_torch.distributed.lanes`).  A list may repeat a device: D
+slots on one card.
+
+This is the PyTorch port of ``repro.core.engine``.
 """
 from __future__ import annotations
 
@@ -47,9 +54,12 @@ import torch
 
 from ..compression.pwrel import PwRelParams
 from ..compression.store import BlockStore
+from ..distributed.lanes import (device_slots, make_lane_mesh,
+                                 make_lane_shards)
 from .circuit import Circuit, Gate
 from .dense_engine import apply_matrix
 from .devices import resolve_device
+from .faults import fault_point
 from .fusion import FusedGate
 from .groups import GroupLayout
 from .partition import Partition, Stage, partition_circuit
@@ -115,13 +125,20 @@ class EngineConfig:
             per-gate path (transpose -> apply -> inverse transpose per
             fused unitary, complex64 round-trip per gate, one group at a
             time) — kept for the side-by-side comparison.
-        devices: the run's device, as a one-element list of
-            :class:`torch.device` (default: ``cuda:0``, which must
+        devices: round-robin group placement targets, a list of
+            :class:`torch.device` (default: ``[cuda:0]``, which must
             exist; pass ``[torch.device("cpu")]`` to run the kernels'
-            plain versions on the CPU).  More than one device is not
-            ported yet and raises ``NotImplementedError``.
-        mesh_shape: a 1-D simulation mesh; not ported yet (raises
-            ``NotImplementedError``).
+            plain versions on the CPU).  Devices compare by equality, and
+            a list may repeat one (``[cuda:0] * D``: D slots on one
+            card); it may not mix CUDA and CPU devices.
+        mesh_shape: build the run's device list from a 1-D simulation
+            placement over the visible cards instead (``(N,)`` or a bare
+            ``N``; see :func:`repro_torch.distributed.lanes.make_lane_mesh`,
+            which clamps to the visible count with a warning).  A batched
+            run lane-shards over the devices (nothing exchanged); a single
+            run block-shards its groups per the plan's ``device_slot``
+            with compressed-wire exchange at stage boundaries.  An
+            explicit ``devices`` list wins over ``mesh_shape``.
         per_gate: SC19-Sim baseline — one stage per gate, i.e. a full
             decompress+recompress sweep per gate (§3).
         batch: the batch factor K the *planner* provisions for — a
@@ -462,9 +479,18 @@ class _BoundStage(NamedTuple):
     wave_fn: object = None            # row-batched update (wave scheduler)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+def _lanes_by_device(shards) -> list | None:
+    """The lanes of ``shards`` (:func:`make_lane_shards`) merged per
+    distinct device, by equality: ``[(device, lane indices), ...]``, or None
+    where one device holds them all, which then runs the one-device waves
+    (``[cuda:0] * D`` is D slots of one card, not D half-width waves)."""
+    lanes: dict = {}
+    for s in shards:
+        lanes.setdefault(s.device, []).append(
+            np.arange(s.lanes.start, s.lanes.stop))
+    if len(lanes) == 1:
+        return None
+    return [(dev, np.concatenate(ix)) for dev, ix in lanes.items()]
 
 
 class BMQSimEngine:
@@ -479,9 +505,10 @@ class BMQSimEngine:
     inspectable :class:`ExecutionPlan` artifact; passing such a plan back
     via ``plan=`` skips planning and executes it verbatim.
 
-    The run's device is ``config.devices[0]`` (default ``cuda:0``).  On
-    the CPU the kernels' plain versions run and the plan records
-    ``interpret=True``; on CUDA the kernels launch and it records False.
+    The run's devices are ``config.devices`` (default ``[cuda:0]``);
+    ``self.device``, the first, holds the stage operands.  On the CPU the
+    kernels' plain versions run and the plan records ``interpret=True``;
+    on CUDA the kernels launch and it records False.
 
     Use :class:`~repro_torch.core.simulator.Simulator` unless you need to
     poke at engine internals between construction and run.
@@ -490,16 +517,25 @@ class BMQSimEngine:
     def __init__(self, circuit: Circuit, config: EngineConfig,
                  *, store: BlockStore | None = None,
                  plan: ExecutionPlan | None = None):
-        if config.mesh_shape is not None:
-            raise _not_ported("a simulation mesh (mesh_shape)", "A10")
-        if config.devices and len(config.devices) > 1:
-            raise _not_ported("multi-device placement", "A10")
         self.circuit = circuit
         self._circuit_fp = circuit_fingerprint(circuit)
         self.n = circuit.n_qubits
-        self.device = resolve_device(config.devices[0] if config.devices
-                                     else None)
-        self._devices = [self.device]
+        # lanes or block slots lay out along this list (distributed.lanes);
+        # torch.device objects are not singletons, so the pipeline finds
+        # repeats by equality: [cuda:0] * D is D slots on one card
+        if config.devices:
+            self._devices = [torch.device(d) for d in config.devices]
+        elif config.mesh_shape is not None:
+            self._devices = list(make_lane_mesh(config.mesh_shape).devices)
+        else:
+            self._devices = [resolve_device(None)]
+        kinds = sorted({d.type for d in self._devices})
+        if len(kinds) > 1:
+            raise ValueError(
+                f"devices {self._devices} mix {' and '.join(kinds)}: one "
+                "run's devices come from one platform")
+        #: the first device: it holds the stage operands
+        self.device = self._devices[0]
         #: True where the kernels' plain versions run (the plan's
         #: ``interpret`` field, kept so plans compare across packages)
         self._interpret = self.device.type == "cpu"
@@ -529,7 +565,7 @@ class BMQSimEngine:
         pre_part = None
         if plan is None:
             config, self.auto_tuned, pre_part = resolve_config(
-                circuit, config, n_devices=1)
+                circuit, config, n_devices=len(self._devices))
         self.cfg = config
         self.b = min(config.local_bits, self.n)
         self.params = PwRelParams(b_r=config.b_r)
@@ -748,7 +784,7 @@ class BMQSimEngine:
             plan = assemble_plan(
                 self._circuit_fp, self.cfg, self.partition,
                 [(bs.layout, bs.plan) for bs in bound],
-                n_devices=1, interpret=self._interpret,
+                n_devices=len(self._devices), interpret=self._interpret,
                 params_key=pkey, auto_tuned=self.auto_tuned)
             self._plans[skey] = plan
         elif plan.params_key != pkey:
@@ -810,6 +846,30 @@ class BMQSimEngine:
             ram_budget=self.cfg.ram_budget_bytes,
             disk_budget=self.cfg.disk_budget_bytes)
 
+    def _exchange_ledger(self, owners: dict, gids: np.ndarray,
+                         slots: np.ndarray) -> int:
+        """Account the compressed-wire exchange one stage boundary of a
+        block-sharded run implies: every block whose owning device slot
+        changed since the previous stage moves as its stored encoded blob
+        (the store holds nothing rawer: both codec backends persist the
+        same compressed BlockSegments format), so the bytes tallied here
+        are exactly what would cross the interconnect.  ``owners`` maps
+        block key -> previous slot and is updated in place; returns the
+        bytes moved at this boundary."""
+        moved = 0
+        for g, row in enumerate(gids):
+            slot = int(slots[g])
+            for key in row:
+                k = int(key)
+                prev = owners.get(k)
+                if prev is not None and prev != slot:
+                    fault_point("pipeline.exchange")
+                    moved += self.store.nbytes_of(k)
+                    self.stats.n_exchanged_blocks += 1
+                owners[k] = slot
+        self.stats.exchange_bytes += moved
+        return moved
+
     def _clear_lanes(self, new_lanes: int) -> None:
         """Drop the final states of lanes a previous (larger) batch left
         in the store — their keys would otherwise leak RAM forever."""
@@ -854,7 +914,7 @@ class BMQSimEngine:
             self._clear_lanes(1)
             self._init_state()
         pipe = StagePipeline(self.backend, depth=self.cfg.pipeline_depth,
-                             device=self.device)
+                             devices=self._devices)
         monitor = self._make_monitor()
         # snapshot the backend's lifetime counters so repeated run() calls
         # on one engine accumulate deltas, not running totals
@@ -862,6 +922,11 @@ class BMQSimEngine:
         h2d0, d2h0 = back.h2d_bytes, back.d2h_bytes
         dec0, com0 = back.n_decompressions, back.n_compressions
         first_done = False
+        # block sharding (D > 1): groups follow the plan's device_slot
+        # round-robin; `owners` tracks each block's slot so stage
+        # boundaries account exactly the blocks that change hands
+        D = len(self._devices)
+        owners: dict[int, int] = {}
         with pipe, torch.no_grad():
             for idx, bs in enumerate(bound):
                 if idx < start_stage or not bs.plan:
@@ -881,9 +946,17 @@ class BMQSimEngine:
                 self.stats.n_transposes_scheduled += \
                     bs.sched.n_transposes * bs.layout.n_groups
                 sh2d, sd2h = back.h2d_bytes, back.d2h_bytes
-                self.stats.per_stage_exchange_bytes.append(0)
-                pipe.run_stage(bs.layout.group_block_ids(), bs.fn, bs.mats,
-                               wave_fn=bs.wave_fn)
+                gids = bs.layout.group_block_ids()
+                group_devices = None
+                if D > 1:
+                    slots = device_slots(gids.shape[0], D)
+                    self.stats.per_stage_exchange_bytes.append(
+                        self._exchange_ledger(owners, gids, slots))
+                    group_devices = [self._devices[int(s)] for s in slots]
+                else:
+                    self.stats.per_stage_exchange_bytes.append(0)
+                pipe.run_stage(gids, bs.fn, bs.mats, wave_fn=bs.wave_fn,
+                               group_devices=group_devices)
                 self.stats.per_stage_boundary_bytes.append(
                     (back.h2d_bytes - sh2d, back.d2h_bytes - sd2h))
                 if not first_done:
@@ -924,7 +997,7 @@ class BMQSimEngine:
         return max_feasible_lanes(
             self.n, self.b, max_m, self.cfg.pipeline_depth,
             estimate_bytes_per_amp(self.cfg.b_r, self.cfg.compression),
-            budget, lanes, n_devices=1)
+            budget, lanes, n_devices=len(self._devices))
 
     def run_batch(self, bindings) -> None:
         """Execute the circuit for a whole batch of bindings at once.
@@ -986,8 +1059,15 @@ class BMQSimEngine:
             monitor.lanes = lane_base + lanes
         offsets = (lane_base + np.arange(lanes, dtype=np.int64)) \
             * self.n_blocks
+        # lane sharding (D > 1): contiguous near-even lane slices, one a
+        # slot, merged per distinct device.  Each shard owns a disjoint
+        # store-key range, so lanes never change hands: exchange bytes stay
+        # 0 and the only gather is the readout
+        shards = None
+        if len(self._devices) > 1 and lanes > 1:
+            shards = _lanes_by_device(make_lane_shards(self._devices, lanes))
         pipe = StagePipeline(self.backend, depth=self.cfg.pipeline_depth,
-                             device=self.device)
+                             devices=self._devices)
         back = self.backend
         h2d0, d2h0 = back.h2d_bytes, back.d2h_bytes
         dec0, com0 = back.n_decompressions, back.n_compressions
@@ -1010,7 +1090,8 @@ class BMQSimEngine:
                     bs.sched.n_transposes * bs.layout.n_groups
                 sh2d, sd2h = back.h2d_bytes, back.d2h_bytes
                 pipe.run_stage(bs.layout.group_block_ids(), bs.fn, bs.mats,
-                               lane_offsets=offsets, wave_fn=bs.wave_fn)
+                               lane_offsets=offsets, wave_fn=bs.wave_fn,
+                               lane_shards=shards)
                 self.stats.per_stage_boundary_bytes.append(
                     (back.h2d_bytes - sh2d, back.d2h_bytes - sd2h))
                 self.stats.per_stage_exchange_bytes.append(0)

@@ -52,6 +52,13 @@ caller's thread, unless ``fetch_workers`` asks for pools.
 A stage without a row-batched update (the per-gate path,
 ``gate_schedule=False``) runs strictly sequentially, one group at a time,
 through the backends' single-group hooks.
+
+Placement over several devices (:meth:`StagePipeline.run_stage`'s
+``lane_shards`` / ``group_devices``) cuts a stage into wave items of
+``(keys, device, operands)``, each staged, computed and encoded on its
+own device; devices compare by equality, so groups placed on repeats of
+one device run exactly the one-device waves (the engine merges the lane
+shards of one device before they get here).
 """
 from __future__ import annotations
 
@@ -483,11 +490,13 @@ class StagePipeline:
     """
 
     def __init__(self, backend: CodecBackend, depth: int = 2,
-                 device: torch.device | None = None,
+                 devices: list | None = None,
                  fetch_workers: int | None = None):
         self.backend = backend
         self.depth = max(1, depth)
-        self.device = resolve_device(device)
+        #: the devices waves round-robin over (default ``[cuda:0]``)
+        self.devices = ([torch.device(d) for d in devices] if devices
+                        else [resolve_device(None)])
         # fetch pool width.  None = adaptive: one worker per spare core,
         # capped at the lookahead — and NO pools on a single-core host.
         # An explicit >= 1 forces the threaded overlap scheduler; an
@@ -565,9 +574,13 @@ class StagePipeline:
         with self._t_lock:
             self.t_store += dt
 
+    def _device_for(self, w: int) -> torch.device:
+        return self.devices[w % len(self.devices)]
+
     def run_stage(self, block_ids: np.ndarray, fn, mats,
                   lane_offsets: np.ndarray | None = None,
-                  wave_fn=None) -> None:
+                  wave_fn=None, lane_shards=None,
+                  group_devices=None) -> None:
         """Run one stage: ``block_ids`` is the (n_groups, 2^m) layout
         table, ``fn`` the single-group stage update ((2, 2^(b+m)) planes
         -> same) and ``mats`` its operands.
@@ -582,48 +595,151 @@ class StagePipeline:
         key table stacks ``lane_offsets[:, None] + block_ids[g]`` for the
         wave's groups (groups-major: row ``g_local * L + l``), and
         ``wave_fn`` updates the (depth·L, 2, 2^(b+m)) row stack in one
-        call, row ``w`` against lane ``w % L``'s operands."""
+        call, row ``w`` against lane ``w % L``'s operands.
+
+        Placement over several devices (one of):
+
+        * ``lane_shards``, ``[(device, lanes), ...]`` (``lanes`` a slice
+          or an array of lane indices): each wave splits into one item a
+          shard, carrying that shard's lane rows (keys from
+          ``lane_offsets[lanes]``) and its rows of the lane-stacked
+          operands, placed on the shard's device once a stage.  Shards touch disjoint store-key ranges, so nothing is
+          exchanged.
+        * ``group_devices``, a device a group (the plan's ``device_slot``
+          placement): the stage's groups are bucketed by device, chunked
+          into depth-wide waves and interleaved one chunk a device, so
+          consecutive calls land on different devices.  The engine
+          accounts the blocks whose owner changed since the previous
+          stage (compressed-wire exchange).
+
+        Without either, wave ``w`` runs on ``devices[w % D]``."""
         assert self._entered, "use StagePipeline as a context manager"
         n_groups, n_blocks = block_ids.shape
         self.n_group_phases += n_groups
         if wave_fn is None:
+            # the per-gate path has no batched form to shard a wave with;
+            # group g runs on devices[g % D], the round-robin the plan's
+            # device_slot records
             self._run_sequential_single(block_ids, fn, mats, lane_offsets)
             return
-        items = self._wave_items(block_ids, lane_offsets)
+        items = self._wave_items(block_ids, mats, lane_offsets,
+                                 lane_shards, group_devices)
         if self._dec_pool is None:
-            self._run_waves(items, wave_fn, mats, n_blocks)
+            self._run_waves(items, wave_fn, n_blocks)
             return
-        self._run_overlapped(items, wave_fn, mats, n_blocks)
+        self._run_overlapped(items, wave_fn, n_blocks)
 
-    def _wave_items(self, block_ids, lane_offsets=None) -> list[np.ndarray]:
-        """Cut one stage into depth-wide key tables (one per wave); with
-        ``lane_offsets`` each group's row repeats once per lane, shifted
-        by the lane's key offset, groups-major."""
+    # -- wave item construction ----------------------------------------------
+    @staticmethod
+    def _placed(mats, dev: torch.device, cache: dict) -> tuple:
+        """``mats`` on ``dev``, moved once a stage (a tensor already there
+        is itself)."""
+        if dev not in cache:
+            cache[dev] = tuple(m.to(dev) for m in mats)
+        return cache[dev]
+
+    def _wave_items(self, block_ids, mats, lane_offsets=None,
+                    lane_shards=None, group_devices=None) -> list[tuple]:
+        """Cut one stage into ``(keys, device, operands)`` wave items, the
+        unit both schedulers consume: depth-wide key tables (with
+        ``lane_offsets``, each group's row repeated once a lane, shifted
+        by the lane's key offset, groups-major), each with its device and
+        the operands placed there once a stage."""
         n_groups, _ = block_ids.shape
         W = min(self.depth, n_groups)
-        items = [block_ids[lo:lo + W] for lo in range(0, n_groups, W)]
-        if lane_offsets is None:
+        offs = (None if lane_offsets is None
+                else np.asarray(lane_offsets)[:, None])
+
+        def keys_of(gids, o=offs):
+            if o is None:
+                return gids
+            return np.concatenate([o + row[None, :] for row in gids])
+
+        placed: dict = {}
+        items = []
+        if lane_shards:
+            # the shard's lanes of the lane-stacked operands (the first L
+            # rows of operands tiled for a full wave are the L lanes),
+            # tiled once to a full wave of the shard's rows
+            L = offs.shape[0]
+            shard_ops = []
+            for dev, sl in lane_shards:
+                ops = []
+                for m in mats:
+                    m = m[:L][sl if isinstance(sl, slice)
+                              else torch.as_tensor(sl, device=m.device)]
+                    if W > 1:
+                        m = m.repeat((W,) + (1,) * (m.dim() - 1))
+                    ops.append(m.to(dev))
+                shard_ops.append((torch.device(dev), offs[sl], tuple(ops)))
+            for lo in range(0, n_groups, W):
+                gids = block_ids[lo:lo + W]
+                for dev, o, ops in shard_ops:
+                    items.append((keys_of(gids, o), dev, ops))
             return items
-        offs = np.asarray(lane_offsets)[:, None]
-        return [np.concatenate([offs + row[None, :] for row in gids])
-                for gids in items]
+        if group_devices is not None:
+            # bucket groups by their slot's device (by equality: repeats
+            # of one device are one bucket, the one-device waves), chunk
+            # each bucket into depth-wide waves, and interleave one chunk
+            # a device
+            buckets: dict = {}
+            for g, dev in enumerate(group_devices):
+                buckets.setdefault(torch.device(dev), []).append(g)
+            chunks = {dev: [gs[i:i + W] for i in range(0, len(gs), W)]
+                      for dev, gs in buckets.items()}
+            while any(chunks.values()):
+                for dev, cs in chunks.items():
+                    if cs:
+                        gids = block_ids[np.asarray(cs.pop(0))]
+                        items.append((keys_of(gids), dev,
+                                      self._placed(mats, dev, placed)))
+            return items
+        for w, lo in enumerate(range(0, n_groups, W)):
+            dev = self._device_for(w)
+            items.append((keys_of(block_ids[lo:lo + W]), dev,
+                          self._placed(mats, dev, placed)))
+        return items
+
+    @staticmethod
+    def _window_for(items, base: int) -> int:
+        """In-flight window of a wave-item schedule: at least one item a
+        distinct device, so a multi-device stage keeps every device busy
+        while older waves drain at the boundary."""
+        n_dev = len({dev for _, dev, _ in items})
+        if n_dev <= 1:
+            return base
+        return max(base, min(n_dev, len(items)))
 
     # -- sequential wave loop (depth 1 / coalescing-only hosts) ---------------
-    def _run_waves(self, items, wave_fn, mats, n_blocks) -> None:
-        """Caller's-thread wave loop: no pools, no lookahead, window 1 —
-        the strictly sequential reference schedule."""
+    def _run_waves(self, items, wave_fn, n_blocks) -> None:
+        """Caller's-thread wave loop: no pools, no lookahead.  On one
+        device the window is 1, the strictly sequential reference
+        schedule.  With several devices it widens to the device count:
+        each device's compute is queued before any older wave's blocking
+        boundary wait."""
         back = self.backend
-        for keys in items:
+        window = self._window_for(items, 1)
+        in_flight: deque = deque()
+
+        def drain():
+            okeys, oticket = in_flight.popleft()
+            t0 = time.perf_counter()
+            result = back.await_result_batch(oticket)
+            self.t_fetch += time.perf_counter() - t0
+            self._store(back.store_group_batch, okeys, result)
+
+        for keys, dev, imats in items:
             staged = self._load(back.fetch_group_batch, keys)
             t0 = time.perf_counter()
-            planes = back.stage_to_device_batch(staged, self.device)
-            out = wave_fn(planes, *mats)
+            planes = back.stage_to_device_batch(staged, dev)
+            out = wave_fn(planes, *imats)
             ticket = back.dispatch_result_batch(out, n_blocks)
             self.t_compute += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            result = back.await_result_batch(ticket)
-            self.t_fetch += time.perf_counter() - t0
-            self._store(back.store_group_batch, keys, result)
+            in_flight.append((keys, ticket))
+            if len(in_flight) >= window:
+                drain()
+        while in_flight:
+            drain()
 
     # -- strictly sequential single-group loop (no batched stage fn) ----------
     def _run_sequential_single(self, block_ids, fn, mats,
@@ -647,11 +763,13 @@ class StagePipeline:
             offs = np.asarray(lane_offsets)[:, None]
             group_keys = [offs + block_ids[g][None, :]
                           for g in range(n_groups)]
-        for keys in group_keys:
+        placed: dict = {}
+        for g, keys in enumerate(group_keys):
             staged = self._load(fetch, keys)
             t0 = time.perf_counter()
-            planes = to_dev(staged, self.device)
-            out = fn(planes, *mats)
+            dev = self._device_for(g)
+            planes = to_dev(staged, dev)
+            out = fn(planes, *self._placed(mats, dev, placed))
             ticket = dispatch(out, n_blocks)
             self.t_compute += time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -660,10 +778,10 @@ class StagePipeline:
             self._store(store, keys, result)
 
     # -- the double-buffered wave loop ---------------------------------------
-    def _run_overlapped(self, items, wave_fn, mats, n_blocks) -> None:
+    def _run_overlapped(self, items, wave_fn, n_blocks) -> None:
         back = self.backend
         n_waves = len(items)
-        window = self.inflight_window
+        window = self._window_for(items, self.inflight_window)
         ready: queue.SimpleQueue = queue.SimpleQueue()
         outstanding: dict[int, object] = {}
         submitted = 0
@@ -675,7 +793,7 @@ class StagePipeline:
                 submitted += 1
                 fut = self._dec_pool.submit(self._load,
                                             back.fetch_group_batch,
-                                            items[w])
+                                            items[w][0])
                 outstanding[w] = fut
                 fut.add_done_callback(lambda _f, w=w: ready.put(w))
 
@@ -688,7 +806,7 @@ class StagePipeline:
             result = back.await_result_batch(oticket)
             self.t_fetch += time.perf_counter() - t0
             pending_save.append(self._com_pool.submit(
-                self._store, back.store_group_batch, items[ow], result))
+                self._store, back.store_group_batch, items[ow][0], result))
 
         try:
             for _ in range(min(1 + _FETCH_LOOKAHEAD, n_waves)):
@@ -698,9 +816,10 @@ class StagePipeline:
                 # fetch finished first
                 w = ready.get()
                 staged = outstanding.pop(w).result()
+                keys, dev, imats = items[w]
                 t0 = time.perf_counter()
-                planes = back.stage_to_device_batch(staged, self.device)
-                out = wave_fn(planes, *mats)
+                planes = back.stage_to_device_batch(staged, dev)
+                out = wave_fn(planes, *imats)
                 ticket = back.dispatch_result_batch(out, n_blocks)
                 self.t_compute += time.perf_counter() - t0
                 submit_next()          # keep the fetch lookahead full

@@ -1,9 +1,10 @@
 """Quantum-simulation launcher (the paper's own workload at scale):
-BMQSIM session on one device with a RAM budget + disk tier, plus
-compressed-store readout — the 2^n state is never materialized.
+BMQSIM session over one or several devices with a RAM budget + disk
+tier, plus compressed-store readout — the 2^n state is never
+materialized.
 
     PYTHONPATH=src python -m repro_torch.launch.qsim --circuit qft \
-        --qubits 20 [--device cuda|cpu] \
+        --qubits 20 [--device cuda|cpu] [--devices 4] \
         [--noise 0.02 --trajectories 8 | --batch 4] [--block-bits 14] [--memory-budget 64] [--explain] [--ram-mb 64] \
         [--shots 1024] [--expect zsum] [--save ck.bmq | --resume ck.bmq] \
         [--checkpoint-every 2] [--inject store.spill_read:ioerror:hit=3] \
@@ -20,8 +21,12 @@ finding — also without executing a stage.
 
 The PyTorch port of ``repro.launch.qsim``: the run's device is
 ``--device`` (default ``cuda``, i.e. ``cuda:0``, which must exist; ``cpu``
-runs every kernel's plain version).  Several devices (``--devices D``
-with D > 1) are not ported yet and raise ``NotImplementedError``.
+runs every kernel's plain version).  ``--devices D`` runs on D device
+slots, where ``repro`` makes D virtual host devices: with ``--device cpu``
+D slots on the CPU, with ``--device cuda`` the first D visible cards,
+``cuda:0`` repeated where there are fewer (a line says how many physical
+devices back the slots).  A batched run lane-shards over the slots, a
+single run block-shards its groups and prints the exchange ledger.
 """
 import argparse
 import contextlib
@@ -32,7 +37,21 @@ from ..core import (EngineConfig, Simulator, build_circuit,
                     with_depolarizing, zsum_cost_fn)
 from ..core.faults import INJECTION_POINTS, inject_faults
 from ..core.planner import estimate_bytes_per_amp
+from ..distributed.lanes import visible_devices
 from ..errors import ResumableError
+
+
+def _device_slots(device: str, n: int) -> list | None:
+    """The run's device list for ``--device`` and ``--devices n``: n slots
+    on the CPU, or the first n visible cards with ``cuda:0`` repeated
+    where there are fewer; None (``cuda:0``, which must exist) for one
+    card."""
+    if device == "cpu":
+        return [torch.device("cpu")] * n
+    if n == 1:
+        return None
+    cards = visible_devices()[:n]
+    return cards + [cards[0]] * (n - len(cards))
 
 
 def main(argv=None):
@@ -67,8 +86,12 @@ def main(argv=None):
                          "it must exist) or cpu (every kernel's plain "
                          "version)")
     ap.add_argument("--devices", type=int, default=None, metavar="D",
-                    help="a D-device mesh; D > 1 is not ported yet "
-                         "(ROADMAP A10) and raises NotImplementedError")
+                    help="run on D device slots: lanes shard across "
+                         "them when batched, SV block groups shard "
+                         "across them otherwise (only encoded wire "
+                         "crosses); the first D cards of --device cuda, "
+                         "cuda:0 repeated where there are fewer, or D "
+                         "slots of --device cpu")
     ap.add_argument("--codec-backend", default="host",
                     choices=("host", "device"),
                     help="where the lossy codec runs; 'device' ships only "
@@ -141,12 +164,12 @@ def main(argv=None):
 
     if args.devices is not None and args.devices < 1:
         ap.error("--devices needs a positive device count")
-    if args.devices and args.devices > 1:
-        raise NotImplementedError(
-            "a simulation mesh (--devices > 1) is not ported to "
-            "repro_torch yet (ROADMAP A10)")
     # cuda: the default device, cuda:0, which must exist
-    devices = [torch.device("cpu")] if args.device == "cpu" else None
+    devices = _device_slots(args.device, args.devices or 1)
+    if args.devices and args.devices > 1:
+        physical = list(dict.fromkeys(devices))
+        print(f"[qsim] {args.devices} device slots on {len(physical)} "
+              f"physical device(s): {', '.join(map(str, physical))}")
 
     lanes = args.trajectories or args.batch
     if args.trajectories and args.batch:
@@ -294,6 +317,10 @@ def main(argv=None):
               f"{stats.h2d_bytes/2**20:.2f} MiB h2d, "
               f"{stats.d2h_bytes/2**20:.2f} MiB d2h "
               f"over {stats.n_stages} stages")
+        if args.devices and args.devices > 1:
+            print(f"[qsim] device exchange ({args.devices} devices): "
+                  f"{stats.exchange_bytes/2**20:.2f} MiB encoded wire "
+                  f"over {stats.n_exchanged_blocks} block hand-off(s)")
         if (stats.n_io_retries or stats.n_replays
                 or stats.n_corruptions_detected or stats.n_pressure_events):
             print(f"[qsim] resilience: io_retries={stats.n_io_retries} "

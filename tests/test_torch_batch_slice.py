@@ -16,6 +16,9 @@ draws and the lane-stacked operands must equal repro's exactly.
 """
 import contextlib
 import io
+import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -388,9 +391,11 @@ def test_stage_fn_batch_on_a_multi_group_wave_equals_repros(use_kernel):
         eng = ts._engine
         bindings = tuple((p, None) for p in points)
         bound = [bs for bs in eng._bind_stages_batch(bindings) if bs.plan]
-        with StagePipeline(eng.backend, depth=d, device=CPU) as pipe:
-            keys = pipe._wave_items(bound[0].layout.group_block_ids(),
-                                    np.arange(lanes) * eng.n_blocks)[0]
+        with StagePipeline(eng.backend, depth=d, devices=[CPU]) as pipe:
+            keys, dev, _ = pipe._wave_items(
+                bound[0].layout.group_block_ids(), bound[0].mats,
+                np.arange(lanes) * eng.n_blocks)[0]
+    assert dev == CPU
     assert keys.shape[0] == d * lanes
     np.testing.assert_array_equal(keys[1] - keys[0], [eng.n_blocks] *
                                   keys.shape[1])
@@ -432,7 +437,7 @@ def test_sequential_lane_loop_equals_the_wave_loop(codec):
             bindings = tuple((p, None) for p in points)
             eng._init_lanes(0, len(points))
             offs = np.arange(len(points)) * eng.n_blocks
-            with StagePipeline(eng.backend, depth=2, device=CPU) as pipe:
+            with StagePipeline(eng.backend, depth=2, devices=[CPU]) as pipe:
                 for bs in eng._bind_stages_batch(bindings):
                     if bs.plan:
                         pipe.run_stage(bs.layout.group_block_ids(), bs.fn,
@@ -475,7 +480,23 @@ def test_qsim_cli_runs_trajectories_on_the_cpu(codec):
     assert abs(tz - jz) <= 1e-3
 
 
+def _repro_qsim(argv: list) -> str:
+    """repro's qsim in a subprocess, as tests/test_multidevice.py runs it:
+    ``--devices D`` makes D virtual host devices before JAX starts."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-m", "repro.launch.qsim", *argv],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return out.stdout
+
+
 def test_qsim_cli_batch_explain_and_unported_mesh():
+    """The name is kept from when ``--devices 2`` raised; A10 ported it:
+    the call returns 0 on two CPU slots, block-sharded, and its lines
+    (the exchange line among them) are repro's ``qsim --devices 2``."""
     from repro_torch.launch import qsim as tqsim
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -486,9 +507,19 @@ def test_qsim_cli_batch_explain_and_unported_mesh():
     out = buf.getvalue()
     assert "[qsim] batched run: 2 lanes in 1 sub-batch(es)" in out
     assert "(avg over 2 lanes" in out
-    with pytest.raises(NotImplementedError, match="A10"):
-        tqsim.main(["--circuit", "qft", "--qubits", "8", "--devices", "2",
-                    "--device", "cpu"])
+    argv = ["--circuit", "qft", "--qubits", "8", "--devices", "2"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert tqsim.main(argv + ["--device", "cpu"]) == 0
+    tout, jout = buf.getvalue(), _repro_qsim(argv)
+    assert "[qsim] 2 device slots on 1 physical device(s): cpu" in tout
+
+    def pick(out, prefixes):
+        return [ln for ln in out.splitlines() if ln.startswith(prefixes)]
+    exact = ("[qsim] planned", "[qsim] qft n=8", "[qsim] group transposes",
+             "[qsim] boundary traffic", "[qsim] device exchange")
+    assert pick(tout, exact) == pick(jout, exact)
+    assert len(pick(tout, "[qsim] device exchange (2 devices)")) == 1
 
 
 def test_batched_runs_default_to_the_card(monkeypatch):

@@ -1,6 +1,6 @@
 """Guards of the port: it imports neither JAX nor the JAX package, nothing
-falls back silently (no GPU, several devices), and the interop helpers
-carry circuits and arrays across."""
+falls back silently (no GPU), placements it cannot run raise, and the
+interop helpers carry circuits and arrays across."""
 import ast
 import os
 import shutil
@@ -50,13 +50,49 @@ def _cpu_sim(circuit, **kw):
     return Simulator(circuit, EngineConfig(devices=[CPU], **kw))
 
 
+@pytest.fixture
+def fake_card(monkeypatch):
+    """A process that reports one CUDA card (none is touched)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"mesh_shape": 2}, "A10"),
     ({"devices": [CPU, CPU]}, "A10"),
+    ({"devices": [torch.device("cuda", 0), CPU]}, "one platform"),
+    ({"mesh_shape": (2, 2)}, "1-D"),
 ])
-def test_unported_placements_and_paths_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Simulator(build_circuit("ghz_state", 6), EngineConfig(**kw))
+def test_unported_placements_and_paths_raise(kw, item, fake_card,
+                                             monkeypatch):
+    """The name is kept from when these placements raised: A10 ported
+    ``mesh_shape=2`` and ``[cpu, cpu]``, which now construct and run two
+    block-sharded slots equal to repro's ``[jax.devices()[0]] * 2`` (the
+    visible devices stand in as two CPU slots for ``mesh_shape``).  A list
+    that mixes a card and the CPU, and a 2-D mesh_shape, raise
+    ``ValueError`` before any device is touched."""
+    from repro_torch.distributed import lanes
+    circuit = build_circuit("ghz_state", 6)
+    if item != "A10":
+        with pytest.raises(ValueError, match=item):
+            Simulator(circuit, EngineConfig(**kw))
+        return
+    repro = pytest.importorskip("repro")
+    jax = pytest.importorskip("jax")
+    monkeypatch.setattr(lanes, "visible_devices", lambda: [CPU, CPU])
+    with Simulator(circuit, EngineConfig(local_bits=3, **kw)) as sim:
+        assert sim._engine._devices == [CPU, CPU]
+        got = sim.run().statevector()
+        st = sim.stats
+    jc = repro.build_circuit("ghz_state", 6)
+    with repro.Simulator(jc, repro.EngineConfig(
+            local_bits=3, devices=[jax.devices()[0]] * 2)) as jsim:
+        want = jsim.run().statevector()
+        jst = jsim.stats
+    assert st.n_exchanged_blocks == jst.n_exchanged_blocks > 0
+    assert st.per_stage_exchange_bytes == jst.per_stage_exchange_bytes
+    assert (st.h2d_bytes, st.d2h_bytes) == (jst.h2d_bytes, jst.d2h_bytes)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_missing_gpu_raises_unless_the_cpu_was_asked_for(monkeypatch):
@@ -108,9 +144,9 @@ def test_stage_pipeline_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StagePipeline(backend)
-    assert StagePipeline(backend, device=CPU).device == CPU
+    assert StagePipeline(backend, devices=[CPU]).devices == [CPU]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert StagePipeline(backend).device == torch.device("cuda", 0)
+    assert StagePipeline(backend).devices == [torch.device("cuda", 0)]
 
 
 @pytest.mark.cuda
