@@ -89,13 +89,15 @@ def lm_params_from_numpy(tree, device=None):
     """The JAX package's LM parameter tree (``repro.models.transformer.
     init_params``), its leaves already numpy arrays, as the port's tree of
     tensors on ``device`` (default ``cuda:0``): the same dicts, lists and
-    tuples, dtypes kept (bf16 weights, f32 norms)."""
+    tuples, dtypes kept (bf16 weights and expert stacks; f32 norms, MoE
+    routers, mLSTM gate projections, RG-LRU Λ and sLSTM biases)."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
 def lm_cache_from_numpy(tree, device=None):
     """The JAX package's decode cache (raw bf16 k/v, or the compressed
-    uint8 codes and signs with f32 scales), its leaves already numpy
+    uint8 codes and signs with f32 scales; recurrent states, f32 but for
+    the RG-LRU's conv taps in the model's dtype), its leaves already numpy
     arrays, as the port's tree of writable tensors on ``device`` (default
     ``cuda:0``), dtypes kept."""
     return _tree_from_numpy(tree, resolve_device(device))

@@ -1,8 +1,13 @@
 """Decoder-only LM assembly over a layer-kind pattern.
 
-The port of ``repro/models/transformer.py`` for ``"attn"`` and
-``"attn_local"`` layers (dense and GQA decoders such as qwen3, granite and
-qwen1.5; gemma3's 5 sliding-window : 1 global pattern).  Three modes:
+The port of ``repro/models/transformer.py`` for its decoder-only kinds:
+
+  attn / attn_local   GQA attention (full / sliding-window), with a dense
+                      or an MoE feed-forward (``models/moe.py``)
+  rglru               RecurrentGemma temporal mixing (``models/recurrent.py``)
+  mlstm / slstm       xLSTM blocks (``models/xlstm.py``)
+
+Three modes:
 
   forward_train   tokens -> logits                     (forward only)
   forward_prefill tokens -> logits_last + caches       (serve prefill)
@@ -10,20 +15,21 @@ qwen1.5; gemma3's 5 sliding-window : 1 global pattern).  Three modes:
 
 Parameters and caches keep the JAX package's pytree layout — ``{"units":
 (...), "rem": (...)}``, each unit leaf stacked over the pattern units, an
-attention cache (U, B, T, G, hd) — so weights and caches cross packages
-leaf by leaf (``interop.lm_params_from_numpy``).  A local layer's cache
-holds min(max_len, W) slots, a ring once the prompt is longer than W
+attention cache (U, B, T, G, hd), a recurrent state (U, B, ...) — so
+weights and caches cross packages leaf by leaf
+(``interop.lm_params_from_numpy``).  A local layer's cache holds
+min(max_len, W) slots, a ring once the prompt is longer than W
 (``repro``'s layout: position p in slot p % W).  ``lax.scan`` over the
-units becomes a Python loop over views of the stacked tensors; decode
-writes the new cache entries into those views in place and returns the
-same cache.  Decode's ``pos`` becomes one 0-d int32 tensor on the device
-at the top of ``forward_decode``, so no layer reads it on the host: the
-step is one CUDA graph when captured (``serving.step``), as ``repro``'s is
-one XLA program under ``jax.jit`` with pos traced.
+units becomes a Python loop over views of the stacked tensors; prefill
+and decode write each layer's cache entry or new recurrent state into
+those views in place and return the same cache.  Decode's ``pos`` becomes
+one 0-d int32 tensor on the device at the top of ``forward_decode``, so
+no layer reads it on the host: the step is one CUDA graph when captured
+(``serving.step``), as ``repro``'s is one XLA program under ``jax.jit``
+with pos traced.
 
-Not ported yet (``NotImplementedError``): the layer kinds ``cross_attn``
-(A12e), ``rglru``, ``mlstm`` and ``slstm`` (A12d), MoE feed-forward
-(A12c), encoder-decoder models (A12e) and ``loss_fn`` (training, A12f).
+Not ported yet (``NotImplementedError``): the layer kind ``cross_attn``
+and encoder-decoder models (A12e), and ``loss_fn`` (training, A12f).
 """
 from __future__ import annotations
 
@@ -31,17 +37,20 @@ import torch
 
 from ..core.devices import resolve_device
 from . import attention as A
+from . import recurrent as R
+from . import xlstm as X
 from .config import ModelConfig
 from .layers import dense_init, rms_norm
 from .mlp import init_mlp_params, mlp
+from .moe import init_moe_params, moe_layer
 
 __all__ = ["init_params", "forward_train", "forward_prefill",
            "forward_decode", "init_decode_cache", "decode_pos",
-           "check_decode_pos"]
+           "check_decode_pos", "state_leaves"]
 
 ATTN_KINDS = ("attn", "attn_local")
-_UNPORTED_KINDS = {"cross_attn": "A12e", "rglru": "A12d", "mlstm": "A12d",
-                   "slstm": "A12d"}
+STATE_KINDS = ("rglru", "mlstm", "slstm")
+_UNPORTED_KINDS = {"cross_attn": "A12e"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -55,15 +64,12 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} is not ported yet "
                 f"(ROADMAP {_UNPORTED_KINDS[kind]})")
-        if kind not in ATTN_KINDS:
+        if kind not in ATTN_KINDS + STATE_KINDS:
             raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A12c)")
 
 
-def _has_mlp(cfg: ModelConfig) -> bool:
-    return cfg.d_ff > 0
+def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    return kind in ATTN_KINDS and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -90,15 +96,26 @@ def _index(tree, u: int):
 # parameter init
 # ===========================================================================
 
-def _init_layer(gen, cfg: ModelConfig, dtype, device, lead) -> dict:
+_MIXERS = {"rglru": R.init_rglru_params, "mlstm": X.init_mlstm_params,
+           "slstm": X.init_slstm_params}
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device,
+                lead) -> dict:
     d = cfg.d_model
-    prm = {"ln1": torch.zeros(lead + (d,), dtype=torch.float32, device=device),
-           "attn": A.init_attn_params(gen, cfg, dtype, device, lead)}
-    if _has_mlp(cfg):
+    prm = {"ln1": torch.zeros(lead + (d,), dtype=torch.float32,
+                              device=device)}
+    if kind in ATTN_KINDS:
+        prm["attn"] = A.init_attn_params(gen, cfg, dtype, device, lead)
+    else:
+        prm["mix"] = _MIXERS[kind](gen, cfg, dtype, device, lead)
+    if _has_mlp(cfg, kind):
         prm["ln2"] = torch.zeros(lead + (d,), dtype=torch.float32,
                                  device=device)
-        prm["mlp"] = init_mlp_params(gen, d, cfg.d_ff, cfg.act, dtype, device,
-                                     lead)
+        prm["mlp"] = (init_moe_params(gen, cfg, dtype, device, lead)
+                      if cfg.moe is not None else
+                      init_mlp_params(gen, d, cfg.d_ff, cfg.act, dtype,
+                                      device, lead))
     return prm
 
 
@@ -121,10 +138,11 @@ def init_params(cfg: ModelConfig, gen=0, dtype=torch.bfloat16,
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab), 0,
                                        dtype, dev)
-    params["units"] = [_init_layer(gen, cfg, dtype, dev, (cfg.n_units,))
-                       for _ in cfg.pattern]
-    params["rem"] = [_init_layer(gen, cfg, dtype, dev, ())
-                     for _ in range(cfg.n_remainder)]
+    params["units"] = [_init_layer(gen, cfg, kind, dtype, dev,
+                                   (cfg.n_units,))
+                       for kind in cfg.pattern]
+    params["rem"] = [_init_layer(gen, cfg, cfg.pattern[i], dtype, dev, ())
+                     for i in range(cfg.n_remainder)]
     return params
 
 
@@ -132,43 +150,81 @@ def init_params(cfg: ModelConfig, gen=0, dtype=torch.bfloat16,
 # single layer application
 # ===========================================================================
 
-def _ffn(cfg: ModelConfig, x, prm):
-    if _has_mlp(cfg):
-        x = x + mlp(rms_norm(x, prm["ln2"], cfg.norm_eps), prm["mlp"],
-                    cfg.act)
+def _ffn(cfg: ModelConfig, kind: str, x, prm):
+    if _has_mlp(cfg, kind):
+        h = rms_norm(x, prm["ln2"], cfg.norm_eps)
+        x = x + (moe_layer(h, prm["mlp"], cfg) if cfg.moe is not None
+                 else mlp(h, prm["mlp"], cfg.act))
     return x
+
+
+def _write_state(cache, state: dict) -> None:
+    """Copy a layer's new recurrent state into its cache views."""
+    for key, t in state.items():
+        cache[key].copy_(t)
 
 
 def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions,
                       cache):
-    """Full-sequence pass; writes k/v into ``cache`` (a per-layer
-    ``{"k", "v"}`` of views, or None): from slot 0, or for a prompt longer
-    than a local layer's ring its last Tc positions p at slots p % Tc."""
-    W = _window(cfg, kind)
+    """Full-sequence pass; writes the layer's cache entry into ``cache``
+    (its views, or None): k/v from slot 0, or for a prompt longer than a
+    local layer's ring its last Tc positions p at slots p % Tc; a
+    recurrent layer's final state."""
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
-    mix, (k, v) = A.attention_full(h, prm["attn"], cfg, positions, window=W)
-    if cache is not None:
-        S, Tc = k.shape[1], cache["k"].shape[1]
-        if W and S > Tc:
-            slots = torch.arange(S - Tc, S, device=k.device) % Tc
-            cache["k"].index_copy_(1, slots, k[:, S - Tc:])
-            cache["v"].index_copy_(1, slots, v[:, S - Tc:])
-        else:
-            A.update_cache(cache["k"], cache["v"], k, v, 0)
-    return _ffn(cfg, x + mix, prm)
+    want = cache is not None
+    if kind in ATTN_KINDS:
+        W = _window(cfg, kind)
+        mix, (k, v) = A.attention_full(h, prm["attn"], cfg, positions,
+                                       window=W)
+        if want:
+            S, Tc = k.shape[1], cache["k"].shape[1]
+            if W and S > Tc:
+                slots = torch.arange(S - Tc, S, device=k.device) % Tc
+                cache["k"].index_copy_(1, slots, k[:, S - Tc:])
+                cache["v"].index_copy_(1, slots, v[:, S - Tc:])
+            else:
+                A.update_cache(cache["k"], cache["v"], k, v, 0)
+    elif kind == "rglru":
+        mix, (hlast, conv) = R.rglru_full(h, prm["mix"], cfg)
+        if want:
+            _write_state(cache, {"h": hlast, "conv": conv})
+    elif kind == "mlstm":
+        mix, state = X.mlstm_full(h, prm["mix"], cfg, want_state=want)
+        if want:
+            _write_state(cache, state)
+    else:
+        mix, carry = X.slstm_full(h, prm["mix"], cfg)
+        if want:
+            _write_state(cache, dict(zip("hcnm", carry)))
+    return _ffn(cfg, kind, x + mix, prm)
 
 
 def _apply_layer_decode(cfg: ModelConfig, kind: str, x, prm, pos, cache):
-    W = _window(cfg, kind)
+    """One token through one layer; its cache entry or new recurrent state
+    is written into ``cache`` in place."""
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
-    if "codes_k" in cache:           # pwrel-compressed KV (serving/kvcache)
-        from ..serving import kvcache as KV
-        mix, _ = KV.compressed_attention_decode(h, prm["attn"], cfg, cache,
-                                                pos, window=W)
+    if kind in ATTN_KINDS:
+        W = _window(cfg, kind)
+        if "codes_k" in cache:       # pwrel-compressed KV (serving/kvcache)
+            from ..serving import kvcache as KV
+            mix, _ = KV.compressed_attention_decode(h, prm["attn"], cfg,
+                                                    cache, pos, window=W)
+        else:
+            mix, _, _ = A.attention_decode(h, prm["attn"], cfg, cache["k"],
+                                           cache["v"], pos, window=W)
+    elif kind == "rglru":
+        mix, hn, conv = R.rglru_decode(h, prm["mix"], cfg, cache["h"],
+                                       cache["conv"])
+        _write_state(cache, {"h": hn, "conv": conv})
+    elif kind == "mlstm":
+        mix, C, n, m = X.mlstm_decode(h, prm["mix"], cfg, cache["C"],
+                                      cache["n"], cache["m"])
+        _write_state(cache, {"C": C, "n": n, "m": m})
     else:
-        mix, _, _ = A.attention_decode(h, prm["attn"], cfg, cache["k"],
-                                       cache["v"], pos, window=W)
-    return _ffn(cfg, x + mix, prm)
+        mix, carry = X.slstm_decode(h, prm["mix"], cfg,
+                                    tuple(cache[key] for key in "hcnm"))
+        _write_state(cache, dict(zip("hcnm", carry)))
+    return _ffn(cfg, kind, x + mix, prm)
 
 
 # ===========================================================================
@@ -250,22 +306,39 @@ def decode_pos(cfg: ModelConfig, cache, pos, device) -> torch.Tensor:
                       dtype=torch.int32, device=device)
 
 
+def _entries(cfg: ModelConfig, cache) -> list:
+    """(layer kind, cache entry, leading axes) of every pattern position's
+    stacked entry (one leading unit axis) and every remainder layer's."""
+    out = [(kind, c, 1) for kind, c in zip(cfg.pattern, cache["units"])
+           if cfg.n_units]
+    return out + [(cfg.pattern[i], c, 0) for i, c in enumerate(cache["rem"])]
+
+
 def check_decode_pos(cfg: ModelConfig, cache, pos: int) -> int:
-    """A host int ``pos`` range-checked against every cache that is not a
-    ring (a local layer's cache of exactly W slots takes any pos)."""
+    """A host int ``pos`` range-checked against every attention cache that
+    is not a ring (a local layer's cache of exactly W slots takes any
+    pos; a recurrent state any)."""
     if isinstance(pos, bool) or int(pos) != pos or pos < 0:
         raise ValueError(f"forward_decode: pos must be an int >= 0, got "
                          f"{pos!r}")
-    entries = [(kind, c, 2) for kind, c in zip(cfg.pattern, cache["units"])
-               if cfg.n_units]
-    entries += [(cfg.pattern[i], c, 1) for i, c in enumerate(cache["rem"])]
-    for kind, c, seq_axis in entries:
-        T = next(iter(c.values())).shape[seq_axis]
+    for kind, c, lead in _entries(cfg, cache):
+        if kind not in ATTN_KINDS:
+            continue
+        T = next(iter(c.values())).shape[lead + 1]
         W = _window(cfg, kind)
         if not (W and T == W) and pos >= T:
             raise ValueError(f"forward_decode: 1 entry at {pos} do not fit "
                              f"a cache of {T}")
     return int(pos)
+
+
+def state_leaves(cfg: ModelConfig, cache) -> list[torch.Tensor]:
+    """The recurrent-state tensors of ``cache``: what a decode step
+    overwrites with a function of their old values (an attention cache
+    entry is written at pos, the same values however often the step
+    runs)."""
+    return [t for kind, c, _ in _entries(cfg, cache) if kind in STATE_KINDS
+            for t in c.values()]
 
 
 def forward_decode(cfg: ModelConfig, params, token, cache, pos,
@@ -288,19 +361,32 @@ def forward_decode(cfg: ModelConfig, params, token, cache, pos,
     return _logits(cfg, params, x)[:, 0, :], cache
 
 
+def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 n_layers: int, dtype, device) -> dict:
+    """Zero cache entry of ``n_layers`` layers of ``kind``, stacked."""
+    if kind in ATTN_KINDS:
+        return A.init_cache(cfg, batch, _cache_len(cfg, kind, max_len),
+                            n_layers, dtype, device)
+    if kind == "rglru":
+        return R.init_rglru_state(cfg, batch, n_layers, dtype, device)
+    if kind == "mlstm":
+        return X.init_mlstm_state(cfg, batch, n_layers, device)
+    return X.init_slstm_state(cfg, batch, n_layers, device)
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None):
     """Zero cache in the layout ``forward_decode`` reads: per pattern
-    position a stacked (U, B, T, G, hd) k/v pair, per remainder layer an
-    unstacked one; T is ``max_len``, for a local layer min(max_len, W)
-    (its ring)."""
+    position a stacked entry over the units, per remainder layer an
+    unstacked one.  An attention entry is a (U, B, T, G, hd) k/v pair, T
+    ``max_len``, for a local layer min(max_len, W) (its ring); a recurrent
+    one its state (f32, the RG-LRU's conv taps in ``dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    units = tuple(A.init_cache(cfg, batch, _cache_len(cfg, kind, max_len),
-                               cfg.n_units, dtype, dev)
+    units = tuple(_cache_entry(cfg, kind, batch, max_len, cfg.n_units,
+                               dtype, dev)
                   if cfg.n_units else () for kind in cfg.pattern)
-    rem = tuple(_index(A.init_cache(cfg, batch,
-                                    _cache_len(cfg, cfg.pattern[i], max_len),
-                                    1, dtype, dev), 0)
+    rem = tuple(_index(_cache_entry(cfg, cfg.pattern[i], batch, max_len, 1,
+                                    dtype, dev), 0)
                 for i in range(cfg.n_remainder))
     return {"units": units, "rem": rem}

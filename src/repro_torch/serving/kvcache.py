@@ -68,7 +68,9 @@ def dequantize_kv(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
 def compress_prefill_cache(cache) -> dict:
     """Quantize every attention k/v leaf of a prefill-produced cache (a new
     tree; stacked leaves are quantized one unit at a time, which bounds the
-    f32 temporaries to one layer)."""
+    f32 temporaries to one layer).  Recurrent states are O(1) and stay
+    raw, as ``repro``'s, as copies: decode writes states in place, and
+    decoding either cache leaves the other as it was."""
     def quantize(x):
         if x.dim() < 5:
             return quantize_kv(x)
@@ -92,7 +94,7 @@ def compress_prefill_cache(cache) -> dict:
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
-        return node
+        return node.clone()          # a recurrent state, kept raw
 
     return walk(cache)
 
@@ -140,7 +142,8 @@ def compressed_attention_decode(x, prm, cfg: ModelConfig, qcache: dict,
 
 
 def make_compressed_decode_step(cfg: ModelConfig):
-    """Decode step whose cache leaves are quantized (attn kinds only)."""
+    """Decode step whose attention cache leaves are quantized (recurrent
+    states stay raw)."""
     def decode(params, batch):
         return T.forward_decode(cfg, params, batch["token"], batch["cache"],
                                 batch["pos"], batch.get("aux"),

@@ -1,8 +1,9 @@
 """Serve-step factories: prefill (full prompt -> cache) and decode (1 tok),
 and the decode step captured as one CUDA graph.
 
-The port of ``repro/serving/step.py`` for decoder-only models; the
-encoder-decoder (``"audio"``) family is not ported yet (ROADMAP A12e).
+The port of ``repro/serving/step.py`` for decoder-only models (attention,
+MoE and recurrent layers); the encoder-decoder (``"audio"``) family is
+not ported yet (ROADMAP A12e).
 
 ``repro`` runs a decode step as one compiled program: ``jax.jit`` over
 ``forward_decode`` with ``pos`` traced (``examples/serve_lm.py``).  Its
@@ -10,9 +11,10 @@ analogue here is :class:`CapturedDecodeStep`: the step's kernels recorded
 once into a ``torch.cuda.CUDAGraph`` and replayed, so a step costs one
 launch on the host instead of thousands of eager ones.  It captures what
 ``make_decode_step`` / ``make_compressed_decode_step`` return: the cache
-is written in place, and ``pos`` is one 0-d int32 tensor on the card that
-every layer reads on the device (``transformer.forward_decode``), so a
-replay is the eager step, kernel for kernel.
+(attention entries and recurrent states) is written in place, and ``pos``
+is one 0-d int32 tensor on the card that every layer reads on the device
+(``transformer.forward_decode``), so a replay is the eager step, kernel
+for kernel, and replay n reads the states replay n-1 wrote.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from ..kernels import flash_attention, kv_dequant_attention
 from ..models import transformer as T
 from ..models.config import ModelConfig
 
-__all__ = ["make_prefill_step", "make_decode_step", "CapturedDecodeStep"]
+__all__ = ["make_prefill_step", "make_decode_step", "CapturedDecodeStep",
+           "warm_up"]
 
 #: the kernel modules whose launch counts a captured step accounts for
 _KERNEL_MODULES = (flash_attention, kv_dequant_attention)
@@ -63,6 +66,18 @@ def _set_counts(counts: dict[str, int]) -> None:
             m.launch_counts[k] = counts[k]
 
 
+def warm_up(cfg: ModelConfig, decode, params, batch) -> None:
+    """Run the decode step once (which builds its kernels, sizes their
+    grids and sets their attributes) and put back the recurrent states it
+    advanced (``transformer.state_leaves``): the attention entries it
+    wrote are the ones the next run of the step writes again."""
+    states = T.state_leaves(cfg, batch["cache"])
+    saved = [t.clone() for t in states]
+    decode(params, batch)
+    for t, old in zip(states, saved):
+        t.copy_(old)
+
+
 class CapturedDecodeStep:
     """A decode step (``make_decode_step(cfg)`` or
     ``make_compressed_decode_step(cfg)``'s function) over ``params`` and
@@ -74,9 +89,12 @@ class CapturedDecodeStep:
     kernels, sizes their grids and sets their attributes, so the capture
     holds launches only) and captures; every call copies the token into
     the graph's static input, fills its ``pos`` and replays.  The warm-up
-    writes that first step's cache entry, which its replay writes again
-    with the same values: the first call must be the step that is due
-    (:meth:`capture` may be called ahead with the same token and pos).
+    writes that first step's attention entries, which its replay writes
+    again with the same values; the recurrent states it advances
+    (``transformer.state_leaves``) are put back as they were before the
+    capture, so the first replay advances them once.  The first call must
+    be the step that is due (:meth:`capture` may be called ahead with the
+    same token and pos).
     The returned logits are the graph's static output, overwritten by the
     next call.  A capture that meets a host sync raises (there is no eager
     fallback).
@@ -106,7 +124,7 @@ class CapturedDecodeStep:
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            self._decode(self._params, batch)           # warm-up
+            warm_up(self.cfg, self._decode, self._params, batch)
         torch.cuda.current_stream(dev).wait_stream(stream)
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
