@@ -216,10 +216,13 @@ Phases, in order (any failure exits non-zero and prints no result):
                   attention).  B10 and B11 launch once a prefill and once
                   a step per attention layer (none for xlstm); the cache
                   ratio reads the attention caches only (xlstm: a line
-                  says it has none); the plain run's B10 goes a batch row
-                  at a time; MoE phases print the share of (token, layer)
-                  expert sets that differ between the two prefills; every
-                  serve phase prints its peak device memory.
+                  says it has none); MoE phases record both runs'
+                  expert sets, print the share of (token, layer) sets
+                  that differ, and hold the (step, row) logits where the
+                  token's sets agree to 2e-2 and where they parted to
+                  MOE_PARTED_RTOL.  In every serve phase the plain run's
+                  B10 goes a batch row at a time, and the phase prints
+                  its peak device memory.
 20. report      — one JSON line of kernels (B10's and B11's launches
                   summed over the serve phases), the card's name and
                   power limit, and last the ok line.
@@ -2754,8 +2757,7 @@ def _rel_errs(got, want) -> list[float]:
 
 
 def serve_phase(label: str, arch: str, steps: int, seed: int,
-                profile: bool, eager_too: bool, layers=None,
-                plain_by_row: bool = False) -> dict:
+                profile: bool, eager_too: bool, layers=None) -> dict:
     """``arch`` at full width (and depth, or ``layers`` of it; bf16
     weights drawn on cuda:0 from ``seed``): prefill 8 x 2,048 tokens
     (max_len 4,096), compress the cache, ``steps`` compressed decode steps
@@ -2763,8 +2765,8 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     copy of the same cache: the two bit for bit at every step); exactly
     one B10 launch an attention layer and one B11 an attention layer a
     step; then the same prompts with the two kernels' plain versions
-    patched in (0 launches; ``plain_by_row``: B10's a batch row at a
-    time), teacher-forced on the captured run's tokens, within
+    patched in (0 launches; B10's a batch row at a time), teacher-forced
+    on the captured run's tokens, within
     SERVE_LOGIT_RTOL * max|logits| at every step; the attention cache >=
     KV_RATIO_MIN smaller than bf16 (a model without attention says so).
     For an MoE model both prefills record every layer's expert choices and
@@ -2854,9 +2856,8 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
 
     # the same prompts on the plain versions, patched in where the model
     # modules call the kernels, teacher-forced on the captured run's tokens
-    plain_flash = (_plain_flash_by_row if plain_by_row
-                   else ref.flash_attention_gqa_ref)
-    with mock.patch.object(attn_mod, "flash_attention_gqa", plain_flash), \
+    with mock.patch.object(attn_mod, "flash_attention_gqa",
+                           _plain_flash_by_row), \
             mock.patch.object(kv_mod, "kv_dequant_decode_attention_gqa",
                               ref.kv_dequant_decode_attention_gqa_ref):
         reset_counts()
@@ -3089,7 +3090,7 @@ def main() -> int:
     for label, arch, layers in HYBRID_PHASES:
         launches[label] = timed(label, serve_phase(
             label, arch, HYBRID_STEPS, args.seed, args.profile,
-            eager_too=True, layers=layers, plain_by_row=True))
+            eager_too=True, layers=layers))
     launches["serving"] = {
         k: sum(launches[p][k] for p in launches if p.startswith("serve"))
         for k in ("flash_attention", "kv_dequant_decode_attention")}
