@@ -223,7 +223,27 @@ Phases, in order (any failure exits non-zero and prints no result):
                   MOE_PARTED_RTOL.  In every serve phase the plain run's
                   B10 goes a batch row at a time, and the phase prints
                   its peak device memory.
-20. report      — one JSON line of kernels (B10's and B11's launches
+20. serve_llama_vision — llama-3.2-vision-90b (ROADMAP A12e) at full
+                  width cut to 10 of its 100 layers (2 units of 4
+                  self-attention and 1 cross-attention layer, 10.7 B
+                  weights), 576 image embeddings from --seed as the
+                  stub frontend's output: prefill (8 self-attention B10
+                  launches and 2 cross-attention ones over the 576 image
+                  tokens), the compressed cache (image k/v included), 8
+                  eager and 8 captured steps bit for bit equal (10 B11 a
+                  step: the cross layers' over every image slot), the
+                  plain run within 2e-2, the attention cache (self and
+                  cross) >= 1.7x smaller than bf16.
+21. serve_whisper — whisper-large-v3 whole (32 encoder and 32 decoder
+                  layers, 1.5 B weights), 8 x 1,500 frames from --seed as
+                  the stub conv frontend's output and a 64-token decoder
+                  prompt, max_len 512 (its dec_len): 96 B10 launches a
+                  prefill (32 non-causal encoder, 32 causal decoder, 32
+                  cross over the 1,500 frames), then 16 eager and 16
+                  captured raw decode steps (repro decodes whisper on raw
+                  caches: no hand kernel a step), bit for bit equal, and
+                  the plain run within 2e-2.
+22. report      — one JSON line of kernels (B10's and B11's launches
                   summed over the serve phases), the card's name and
                   power limit, and last the ok line.
 
@@ -330,6 +350,19 @@ HYBRID_STEPS = 8                             # captured steps a phase
 #: partial last block of query rows in B11's grid; recurrentgemma has one
 #: kv head
 HYBRID_GQA = [(48, 8, 128, 4096), (56, 8, 128, 0), (10, 1, 256, 2048)]
+#: serve_llama_vision: llama-3.2-vision-90b cut in depth to 10 of its 100
+#: layers (2 units of 4 self- and 1 cross-attention layer, 10.7 B
+#: parameters; whole it needs several cards), 8 captured steps
+VISION_ARCH, VISION_LAYERS, VISION_STEPS = "llama-3.2-vision-90b", 10, 8
+#: serve_whisper: whisper-large-v3 whole, a 64-token decoder prompt, 16
+#: raw decode steps (its max_len is its dec_len, 512)
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_STEPS = "whisper-large-v3", 64, 16
+#: (B, S, T, Hq, G, hd, causal) of B10 at the two models' prefill shapes:
+#: llama-vision's cross layers over 576 image tokens, whisper's encoder
+#: (non-causal over 1,500 frames) and its decoder's cross layers
+CROSS_FLASH = [(SERVE_BATCH, SERVE_PROMPT, 576, 64, 8, 128, False),
+               (SERVE_BATCH, 1500, 1500, 20, 20, 64, False),
+               (SERVE_BATCH, WHISPER_PROMPT, 1500, 20, 20, 64, False)]
 
 
 def fail(msg: str) -> None:
@@ -1044,29 +1077,57 @@ def flash_case(BH: int, S: int, hd: int, causal: bool, seed: int) -> dict:
                       {"BH": BH, "S": S, "hd": hd, "causal": causal})
 
 
+def gqa_operands(B: int, S: int, T: int, Hq: int, G: int, hd: int,
+                 g) -> tuple:
+    """The projections that q (B,S,Hq,hd) and k/v (B,T,G,hd) are strided
+    slices of (bf16 values; :func:`gqa_split`): one (B,S,Hq+2G,hd) tensor
+    for self-attention (T == S, as attention_full hands them over), else a
+    (B,S,Hq,hd) one and a (B,T,2G,hd) one (attention_cross's q and its
+    source's k/v)."""
+    import torch
+    if T == S:
+        shapes = [(B, S, Hq + 2 * G, hd)]
+    else:
+        shapes = [(B, S, Hq, hd), (B, T, 2 * G, hd)]
+    return tuple(torch.randn(sh, generator=g, device="cuda:0")
+                 .to(torch.bfloat16) for sh in shapes)
+
+
+def gqa_split(bases: tuple, Hq: int, G: int) -> tuple:
+    """(q, k, v) as views of :func:`gqa_operands`' tensors."""
+    if len(bases) == 1:
+        x, = bases
+        return x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:]
+    q, kv = bases
+    return q, kv[:, :, :G], kv[:, :, G:]
+
+
 def flash_gqa_cases(B: int, S: int, Hq: int, G: int, hd: int,
-                    seed: int, window: int = 0) -> list[dict]:
-    """The model layout (q (B,S,Hq,hd), k/v (B,S,G,hd) slices of one
-    projection, as attention_full hands them over) in f32 and in bf16,
-    with a sliding ``window`` (0 none)."""
+                    seed: int, window: int = 0, T: int | None = None,
+                    causal: bool = True) -> list[dict]:
+    """The model layout (:func:`gqa_operands`) in f32 and in bf16, with a
+    sliding ``window`` (0 none), over ``T`` keys (None: S; another T is
+    cross-attention's, unmasked)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda:0").manual_seed(seed)
-    qkv = torch.randn((B, S, Hq + 2 * G, hd), generator=g, device="cuda:0")
-    qkv = qkv.to(torch.bfloat16)
+    T = S if T is None else T
+    bases = gqa_operands(B, S, T, Hq, G, hd, g)
     out = []
     for dt in (torch.float32, torch.bfloat16):
-        x = qkv.to(dt)
-        q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:]
+        q, k, v = gqa_split(tuple(x.to(dt) for x in bases), Hq, G)
         shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd,
-                 "dtype": str(dt).split(".")[-1], "causal": True}
+                 "dtype": str(dt).split(".")[-1], "causal": causal}
+        if T != S:
+            shape["T"] = T
         if window:
             shape["window"] = window
         bf = dt == torch.bfloat16
         out.append(attn_check(
-            "flash_attention", fa.flash_attention_gqa(q, k, v, window=window),
-            ref.flash_attention_gqa_ref(q, k, v, True, window), shape,
+            "flash_attention", fa.flash_attention_gqa(q, k, v, causal=causal,
+                                                      window=window),
+            ref.flash_attention_gqa_ref(q, k, v, causal, window), shape,
             atol=bf16_atol(v) if bf else ATTN_ATOL,
             rtol=BF16_RTOL if bf else 0.0))
     return out
@@ -1374,34 +1435,41 @@ def window_pairs(S: int, window: int) -> int:
 
 
 def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int,
-                     window: int = 0) -> dict:
-    """B10 at a prefill's shape in the model's GQA layout, causal bf16 (as
-    qwen3-4b's and gemma3's prefills call it; ``window`` for gemma3's
-    local layers): kernel and plain version beside the bf16 tensor-core
-    bound and the f32-FMA bound over the unmasked pairs; the library
-    yardstick is F.scaled_dot_product_attention in bf16 on (B, Hq, S, hd)
-    copies with the kv heads expanded outside the timed call (with a
-    window, its mask an explicit (S, S) boolean made outside it)."""
+                     window: int = 0, T: int | None = None,
+                     causal: bool = True) -> dict:
+    """B10 at a prefill's shape in the model's GQA layout, bf16 (causal as
+    qwen3-4b's and gemma3's prefills call it, ``window`` for gemma3's
+    local layers; non-causal over ``T`` keys as llama-vision's and
+    whisper's cross layers and whisper's encoder do): kernel and plain
+    version beside the bf16 tensor-core bound and the f32-FMA bound over
+    the unmasked pairs; the library yardstick is
+    F.scaled_dot_product_attention in bf16 on (B, Hq, S, hd) copies with
+    the kv heads expanded outside the timed call (with a window, its mask
+    an explicit (S, S) boolean made outside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda:0").manual_seed(8)
-    qkv = torch.randn((B, S, Hq + 2 * G, hd), generator=g,
-                      device="cuda:0").bfloat16()
-    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + G], qkv[:, :, Hq + G:]
+    T = S if T is None else T
+    bases = gqa_operands(B, S, T, Hq, G, hd, g)
+    q, k, v = gqa_split(bases, Hq, G)
     shape = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd, "dtype": "bfloat16",
-             "causal": True, "timed": True}
+             "causal": causal, "timed": True}
+    if T != S:
+        shape["T"] = T
     if window:
         shape["window"] = window
     out = attn_check("flash_attention",
-                     fa.flash_attention_gqa(q, k, v, window=window),
-                     ref.flash_attention_gqa_ref(q, k, v, True, window),
+                     fa.flash_attention_gqa(q, k, v, causal=causal,
+                                            window=window),
+                     ref.flash_attention_gqa_ref(q, k, v, causal, window),
                      shape, atol=bf16_atol(v), rtol=BF16_RTOL)
-    nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * G * hd)
-    flops = 4 * B * Hq * hd * window_pairs(S, window)
-    inputs = [(x[:, :, :Hq], x[:, :, Hq:Hq + G], x[:, :, Hq + G:])
-              for (x,) in cold_copies((qkv,), (0,))]
+    nbytes = 2 * (2 * B * S * Hq * hd + 2 * B * T * G * hd)
+    pairs = window_pairs(S, window) if causal else S * T
+    flops = 4 * B * Hq * hd * pairs
+    inputs = [gqa_split(c, Hq, G)
+              for c in cold_copies(bases, tuple(range(len(bases))))]
     rep = Hq // G
     mask = None
     if window and window < S:
@@ -1416,13 +1484,13 @@ def flash_timed_bf16(B: int, S: int, Hq: int, G: int, hd: int,
 
     lib = [heads_first(*a) for a in inputs[:2]]
     out.update(
-        ms=cuda_ms(lambda a, c, d: fa.flash_attention_gqa(a, c, d,
-                                                          window=window),
-                   inputs),
+        ms=cuda_ms(lambda a, c, d: fa.flash_attention_gqa(
+            a, c, d, causal=causal, window=window), inputs),
         plain_ms=cuda_ms(lambda a, c, d: ref.flash_attention_gqa_ref(
-            a, c, d, True, window), inputs[:2], iters=3, warmup=1),
+            a, c, d, causal, window), inputs[:2], iters=3, warmup=1),
         library_ms=cuda_ms(lambda a, c, d: F.scaled_dot_product_attention(
-            a, c, d, attn_mask=mask, is_causal=mask is None), lib),
+            a, c, d, attn_mask=mask, is_causal=causal and mask is None),
+            lib),
         arithmetic="bf16", **bounds(nbytes, flops, flops, BF16_FLOP_PER_S))
     del lib
     print("kernel_time flash_attention " + json.dumps(out), flush=True)
@@ -1593,6 +1661,23 @@ def attention_phase() -> dict:
         b11.append(kvdq_timed(SERVE_BATCH, G, Hq // G,
                               min(W, SERVE_MAX_LEN) or SERVE_MAX_LEN, hd,
                               SERVE_PROMPT + HYBRID_STEPS - 1, "bfloat16"))
+    # cross-attention (llama-vision, whisper): B10 over T != S keys (ragged
+    # last tiles, GQA and MHA, T above and below S) and whisper's
+    # non-causal encoder at hd 64; B11 over a compressed image cache read
+    # whole (pos = T - 1), then both timed at the two models' shapes
+    b10 += [c for i, (B, S, T, Hq, G, hd, causal) in enumerate([
+        (2, 130, 77, 4, 2, 128, False), (2, 64, 1500, 20, 20, 64, False),
+        (1, 300, 576, 64, 8, 128, False), (2, 100, 33, 8, 1, 64, False),
+        (1, 1500, 1500, 20, 20, 64, False), (2, 64, 64, 20, 20, 64, True)])
+        for c in flash_gqa_cases(B, S, Hq, G, hd, seed=270 + i, T=T,
+                                 causal=causal)]
+    b11 += [kvdq_case(64, 576, 128, 8, 575, seed=420, q_dtype=dt)
+            for dt in ("float32", "bfloat16")]
+    b11.append(kvdq_case(64, 576, 128, 8, 575, seed=421,
+                         kv_dtype="bfloat16"))
+    b10 += [flash_timed_bf16(B, S, Hq, G, hd, T=T, causal=causal)
+            for B, S, T, Hq, G, hd, causal in CROSS_FLASH]
+    b11.append(kvdq_timed(SERVE_BATCH, 8, 8, 576, 128, 575, "bfloat16"))
     return {"flash_attention": b10, "kv_dequant_decode_attention": b11}
 
 
@@ -2558,70 +2643,108 @@ def _trace(profile: bool):
     return torch.profiler.profile(activities=[ProfilerActivity.CUDA])
 
 
+def _entries(cache) -> list:
+    """The cache's entries: a decoder-only LM's units and remainder, an
+    encoder-decoder's one flat dict."""
+    if "units" in cache:
+        return list(cache["units"]) + list(cache["rem"])
+    return [cache]
+
+
 def _cache_bytes(cache, key: str) -> int:
     """Bytes of the cache's entries that hold ``key``: "k" the raw
-    attention entries, "codes_k" the compressed ones (units and
-    remainder; recurrent states hold neither)."""
-    return sum(t.numel() * t.element_size()
-               for c in list(cache["units"]) + list(cache["rem"])
+    attention entries (self and cross), "codes_k" the compressed ones
+    (recurrent states hold neither)."""
+    return sum(t.numel() * t.element_size() for c in _entries(cache)
                if key in c for t in c.values())
 
 
 def _state_bytes(cfg, cache) -> int:
+    from repro_torch.models import encdec as E
     from repro_torch.models import transformer as T
+    M = E if cfg.family == "audio" else T
     return sum(t.numel() * t.element_size()
-               for t in T.state_leaves(cfg, cache))
+               for t in M.state_leaves(cfg, cache))
 
 
-def _prefill(cfg, params, tokens, profile: bool = False) -> tuple:
-    """Prefill ``tokens`` with room for SERVE_MAX_LEN and compress the
-    cache, through the serving entry points; returns the last logits, the
-    compressed cache and timings.  The cache ratio reads the attention
-    entries only (None for a model without attention); recurrent states
-    stay raw."""
+def _serve_inputs(cfg, seed: int) -> tuple:
+    """(prefill batch, prompt length, max_len, compressed decode) of a
+    serve phase: 8 prompts of 2,048 tokens, max_len 4,096 and a compressed
+    cache; a VLM's image embeddings (8, n_image_tokens, d_model) beside
+    them; an encoder-decoder's 8 x n_frames frames and a prompt of
+    WHISPER_PROMPT tokens, max_len its dec_len, raw decode (as repro).
+    Tokens from a numpy generator of ``seed``, the embeddings drawn on
+    the card from ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda:0").manual_seed(seed + 1)
+    audio = cfg.family == "audio"
+    prompt = WHISPER_PROMPT if audio else SERVE_PROMPT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, prompt))).to("cuda:0")}
+    n_src = (cfg.encoder.n_frames if audio else cfg.n_image_tokens
+             if "cross_attn" in cfg.pattern else 0)
+    if n_src:
+        batch["frames" if audio else "aux"] = torch.randn(
+            (SERVE_BATCH, n_src, cfg.d_model), generator=g,
+            device="cuda:0").bfloat16()
+    max_len = cfg.encoder.dec_len if audio else SERVE_MAX_LEN
+    return batch, prompt, max_len, not audio
+
+
+def _prefill(cfg, params, batch, max_len: int, compress: bool,
+             profile: bool = False) -> tuple:
+    """Prefill ``batch`` with room for ``max_len`` and (``compress``)
+    compress the cache, through the serving entry points; returns the
+    last logits, the cache and timings.  The cache ratio reads the
+    attention entries only (None for a model without attention, or one
+    decoding on raw caches); recurrent states stay raw."""
     import torch
     from repro_torch.serving import make_prefill_step
     from repro_torch.serving.kvcache import compress_prefill_cache
-    prefill = make_prefill_step(cfg, max_len=SERVE_MAX_LEN)
+    prefill = make_prefill_step(cfg, max_len=max_len)
     with _trace(profile) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     raw = _cache_bytes(cache, "k")
-    qcache = compress_prefill_cache(cache)
-    del cache
-    comp = _cache_bytes(qcache, "codes_k")
+    if compress:
+        cache = compress_prefill_cache(cache)
+    comp = _cache_bytes(cache, "codes_k")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     timing = {"prefill_s": t1 - t0, "compress_s": t2 - t1,
-              "prefill_tokens_per_s": tokens.numel() / (t1 - t0),
+              "prefill_tokens_per_s": batch["tokens"].numel() / (t1 - t0),
               "raw_cache_bytes": raw, "compressed_cache_bytes": comp,
               "cache_ratio": raw / comp if comp else None,
-              "state_bytes": _state_bytes(cfg, qcache)}
+              "state_bytes": _state_bytes(cfg, cache)}
     if profile:
         timing["profile"] = device_profile(prof, t1 - t0)
-    return logits, qcache, timing
+    return logits, cache, timing
 
 
-def _decode(cfg, params, qcache, first, steps: int, captured: bool,
-            forced=None, profile: bool = False) -> tuple:
-    """``steps`` compressed decode steps from SERVE_PROMPT on ``qcache``
-    (greedy from ``first``, or the ``forced`` tokens), eager or through
-    CapturedDecodeStep (warmed up and captured on the first step's inputs
-    before the timed run, so every step is a replay).  The launch counts
-    are set to 0 just before the steps; returns every step's logits, the
-    tokens fed, timings and the steps' launches (the captured step's
-    replays counted by the step)."""
+def _decode(cfg, params, qcache, first, start: int, steps: int,
+            captured: bool, compressed: bool = True, forced=None,
+            profile: bool = False) -> tuple:
+    """``steps`` decode steps from ``start`` on ``qcache`` (compressed,
+    or raw; greedy from ``first``, or the ``forced`` tokens), eager or
+    through CapturedDecodeStep (warmed up and captured on the first
+    step's inputs before the timed run, so every step is a replay).  The
+    launch counts are set to 0 just before the steps; returns every step's
+    logits, the tokens fed, timings and the steps' launches (the captured
+    step's replays counted by the step)."""
     import torch
-    from repro_torch.serving import CapturedDecodeStep
+    from repro_torch.serving import CapturedDecodeStep, make_decode_step
     from repro_torch.serving.kvcache import make_compressed_decode_step
-    decode = make_compressed_decode_step(cfg)
+    decode = (make_compressed_decode_step(cfg) if compressed
+              else make_decode_step(cfg))
     first = first if forced is None else forced[:, :1]
     if captured:
         step = CapturedDecodeStep(cfg, decode, params, qcache)
-        step.capture(first, SERVE_PROMPT)
+        step.capture(first, start)
         torch.cuda.synchronize()
     else:
         def step(tok, pos):
@@ -2637,7 +2760,7 @@ def _decode(cfg, params, qcache, first, steps: int, captured: bool,
                 tok = (out[-1].argmax(-1)[:, None] if forced is None
                        else forced[:, i:i + 1])
             fed.append(tok)
-            logits = step(tok, SERVE_PROMPT + i)
+            logits = step(tok, start + i)
             out.append(logits.clone() if captured else logits)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2660,10 +2783,12 @@ def _decode(cfg, params, qcache, first, steps: int, captured: bool,
 
 
 def _init_model(label: str, arch: str, seed: int, layers=None):
-    """``arch`` at full width on cuda:0, bf16 weights drawn from ``seed``;
-    ``layers`` cuts its depth (a printed cut), None keeps it whole."""
+    """``arch`` at full width on cuda:0, bf16 weights drawn from ``seed``
+    (an encoder-decoder's through ``encdec``); ``layers`` cuts its depth
+    (a printed cut), None keeps it whole."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import encdec as E
     from repro_torch.models import transformer as T
     cfg = get_config(arch)
     if layers is not None:
@@ -2673,8 +2798,9 @@ def _init_model(label: str, arch: str, seed: int, layers=None):
         cfg = cfg.with_(n_layers=layers)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                           device=dev)
+    init = E.init_encdec_params if cfg.family == "audio" else T.init_params
+    params = init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                  device=dev)
     leaves = list(_leaves(params))
     n_bf16 = sum(t.numel() for t in leaves if t.dtype == torch.bfloat16)
     n_f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
@@ -2682,6 +2808,7 @@ def _init_model(label: str, arch: str, seed: int, layers=None):
     print(f"{label}_model {arch} layers={cfg.n_layers} "
           f"kinds={','.join(sorted(set(cfg.pattern)))} "
           f"window={cfg.sliding_window} d_model={cfg.d_model} "
+          f"encoder_layers={cfg.encoder.n_layers if cfg.encoder else 0} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
           f"params={n_bf16 + n_f32} bf16={n_bf16} f32={n_f32} "
           f"param_count()={cfg.param_count()} "
@@ -2760,11 +2887,14 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
                 profile: bool, eager_too: bool, layers=None) -> dict:
     """``arch`` at full width (and depth, or ``layers`` of it; bf16
     weights drawn on cuda:0 from ``seed``): prefill 8 x 2,048 tokens
-    (max_len 4,096), compress the cache, ``steps`` compressed decode steps
-    through CapturedDecodeStep (with ``eager_too`` first eagerly, from a
-    copy of the same cache: the two bit for bit at every step); exactly
-    one B10 launch an attention layer and one B11 an attention layer a
-    step; then the same prompts with the two kernels' plain versions
+    (max_len 4,096; a VLM with its image embeddings; an encoder-decoder
+    :func:`_serve_inputs`' frames and prompt), compress the cache,
+    ``steps`` compressed decode steps (an encoder-decoder's raw, as
+    repro's) through CapturedDecodeStep (with ``eager_too`` first eagerly,
+    from a copy of the same cache: the two bit for bit at every step);
+    exactly one B10 launch an attention layer (self, cross or encoder) and
+    one B11 a self- or cross-attention layer a compressed step; then the
+    same inputs with the two kernels' plain versions
     patched in (0 launches; B10's a batch row at a time), teacher-forced
     on the captured run's tokens, within
     SERVE_LOGIT_RTOL * max|logits| at every step; the attention cache >=
@@ -2775,7 +2905,6 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     captured run's launches (prefill and replays)."""
     from unittest import mock
 
-    import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn_mod
@@ -2786,32 +2915,37 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cfg, params, weight_bytes = _init_model(label, arch, seed, layers)
-    n_attn = sum(k in T.ATTN_KINDS for k in cfg.layer_kinds())
+    audio = cfg.family == "audio"
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in T.ATTN_KINDS for k in kinds)
+    n_cross = cfg.n_layers if audio else sum(k in T.CROSS_KINDS
+                                             for k in kinds)
+    n_enc = cfg.encoder.n_layers if audio else 0
     moe = cfg.moe is not None
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda:0")
+    batch, prompt, max_len, compressed = _serve_inputs(cfg, seed)
     reset_counts()
     routes = {run: [] for run in ("kernels", "plain", "kernels_steps",
                                   "plain_steps")}
     with (_routing(routes["kernels"]) if moe else contextlib.nullcontext()):
-        logits0, qcache, stats = _prefill(cfg, params, tokens, profile)
+        logits0, qcache, stats = _prefill(cfg, params, batch, max_len,
+                                          compressed, profile)
     prefill_launches = read_counts()
     first = logits0.argmax(-1)[:, None]
-    want_b10 = {"flash_attention": n_attn,
+    want_b10 = {"flash_attention": n_enc + n_attn + n_cross,
                 "kv_dequant_decode_attention": 0}
-    want_b11 = {"flash_attention": 0,
-                "kv_dequant_decode_attention": n_attn * steps}
+    want_b11 = {"flash_attention": 0, "kv_dequant_decode_attention":
+                (n_attn + n_cross) * steps if compressed else 0}
     runs = {}
     if eager_too:
         eager_cache = _clone_tree(qcache)
         with (_routing(routes["kernels_steps"]) if moe
               else contextlib.nullcontext()):
-            runs["eager"] = _decode(cfg, params, eager_cache, first, steps,
-                                    False, profile=profile)
+            runs["eager"] = _decode(cfg, params, eager_cache, first, prompt,
+                                    steps, False, compressed,
+                                    profile=profile)
         del eager_cache
-    runs["captured"] = _decode(cfg, params, qcache, first, steps, True,
-                               profile=profile)
+    runs["captured"] = _decode(cfg, params, qcache, first, prompt, steps,
+                               True, compressed, profile=profile)
     del qcache
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     stats["weight_bytes"] = weight_bytes
@@ -2819,6 +2953,8 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     stats["prefill_launches"] = {k: v for k, v in prefill_launches.items()
                                  if v}
     stats["attention_layers"] = n_attn
+    stats["cross_attention_layers"] = n_cross
+    stats["encoder_layers"] = n_enc
     for name, (_, _, timing, _) in runs.items():
         stats[name] = timing
     print(f"{label}_stats " + json.dumps(stats), flush=True)
@@ -2836,11 +2972,15 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
         # launches
         traced = cap_prof["kernel_counts"]["kvdq_partial_kernel"]
         counted = want_b11["kv_dequant_decode_attention"]
-        if not (counted - n_attn < traced <= counted
+        if not (counted - n_attn - n_cross < traced <= counted
                 or traced == counted == 0):
             fail(f"{label}: the captured run's trace holds {traced} "
                  f"kvdq_partial_kernel launches, the step counted {counted}")
-    if stats["cache_ratio"] is None:
+    if not compressed:
+        print(f"{label}_cache raw: an encoder-decoder decodes on raw "
+              f"caches, as repro does; {stats['raw_cache_bytes']} B",
+              flush=True)
+    elif stats["cache_ratio"] is None:
         print(f"{label}_cache no attention layer: no KV cache to compress; "
               f"recurrent states {stats['state_bytes']} B stay raw",
               flush=True)
@@ -2854,7 +2994,7 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
                  zip(runs["eager"][0], runs["captured"][0])]
         del runs["eager"]
 
-    # the same prompts on the plain versions, patched in where the model
+    # the same inputs on the plain versions, patched in where the model
     # modules call the kernels, teacher-forced on the captured run's tokens
     with mock.patch.object(attn_mod, "flash_attention_gqa",
                            _plain_flash_by_row), \
@@ -2863,11 +3003,13 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
         reset_counts()
         with (_routing(routes["plain"]) if moe
               else contextlib.nullcontext()):
-            p0, pcache, ptiming = _prefill(cfg, params, tokens)
+            p0, pcache, ptiming = _prefill(cfg, params, batch, max_len,
+                                           compressed)
         with (_routing(routes["plain_steps"]) if moe
               else contextlib.nullcontext()):
-            plain, _, pdec, _ = _decode(cfg, params, pcache, None, steps,
-                                        False, forced=fed)
+            plain, _, pdec, _ = _decode(cfg, params, pcache, None, prompt,
+                                        steps, False, compressed,
+                                        forced=fed)
         plain_launches = read_counts()
         del pcache
     if any(plain_launches.values()):
@@ -2921,7 +3063,7 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
              f"{MOE_PARTED_RTOL})")
     launches = dict(runs["captured"][3])
     launches["flash_attention"] += prefill_launches["flash_attention"]
-    del params, runs
+    del params, runs, batch
     torch.cuda.empty_cache()
     return launches
 
@@ -3091,6 +3233,12 @@ def main() -> int:
         launches[label] = timed(label, serve_phase(
             label, arch, HYBRID_STEPS, args.seed, args.profile,
             eager_too=True, layers=layers))
+    launches["serve_llama_vision"] = timed("serve_llama_vision", serve_phase(
+        "serve_llama_vision", VISION_ARCH, VISION_STEPS, args.seed,
+        args.profile, eager_too=True, layers=VISION_LAYERS))
+    launches["serve_whisper"] = timed("serve_whisper", serve_phase(
+        "serve_whisper", WHISPER_ARCH, WHISPER_STEPS, args.seed,
+        args.profile, eager_too=True))
     launches["serving"] = {
         k: sum(launches[p][k] for p in launches if p.startswith("serve"))
         for k in ("flash_attention", "kv_dequant_decode_attention")}

@@ -6,9 +6,13 @@
 // attention, scale hd^-0.5, masked scores -2^30, a floor of 1e-30 on the
 // softmax sum, K tiles wholly above the diagonal skipped.  One kernel per
 // input type serves the TPU signature (BH, S, hd) and the model's layout:
-// q (B, S, Hq, hd) and k/v (B, S, G, hd), all by strides, where query head h
+// q (B, S, Hq, hd) and k/v (B, T, G, hd), all by strides, where query head h
 // reads kv head h / rep (rep = Hq / G, the grouping of _gqa_scores).  No
-// replicated KV heads and no (BH, S, hd) copy are made.
+// replicated KV heads and no (BH, S, hd) copy are made.  The key length T
+// is the query length S for self-attention; cross-attention (llama-vision's
+// image layers, whisper's decoder; repro/models/attention.py::
+// attention_cross) reads T != S keys unmasked, and keys at or past T are
+// masked in the last tile as rows past S are not stored.
 //
 // What bounds it: operations.  A (BH, S, hd) causal call does
 // 2·BH·hd·S(S+1)/2 multiply-adds (two products over the unmasked pairs)
@@ -241,11 +245,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
 }
 
 // Scores of n-tile j (keys k0 + 8j + 2t + {0, 1}) for rows r0 (c0, c1) and
-// r0 + 8 (c2, c3) set to -2^30 where masked: past S, above the diagonal, or
-// (window W > 0) W or more keys below the row.
+// r0 + 8 (c2, c3) set to -2^30 where masked: at or past the key length T,
+// above the diagonal, or (window W > 0) W or more keys below the row.
 template <int NJ>
 __device__ __forceinline__ void mask_scores(float (&sc)[NJ][4], int k0,
-                                            int r0, int t, int S,
+                                            int r0, int t, int T,
                                             int causal, int window) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -253,7 +257,7 @@ __device__ __forceinline__ void mask_scores(float (&sc)[NJ][4], int k0,
     for (int u = 0; u < 4; ++u) {
       const int key = k0 + 8 * j + 2 * t + (u & 1);
       const int row = r0 + 8 * (u >> 1);
-      if (key >= S || (causal && key > row) ||
+      if (key >= T || (causal && key > row) ||
           (window && row - key >= window))
         sc[j][u] = kNegInf;
     }
@@ -261,9 +265,9 @@ __device__ __forceinline__ void mask_scores(float (&sc)[NJ][4], int k0,
 
 // Does m-tile rows [r, r + 15] x keys [k0, k0 + BK) hold a masked pair?
 template <int BK>
-__device__ __forceinline__ bool needs_mask(int k0, int r, int S, int causal,
+__device__ __forceinline__ bool needs_mask(int k0, int r, int T, int causal,
                                            int window) {
-  return k0 + BK > S || (causal && k0 + BK - 1 > r) ||
+  return k0 + BK > T || (causal && k0 + BK - 1 > r) ||
          (window && r + 15 - k0 >= window);
 }
 
@@ -368,8 +372,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
                   long long ks, long long kh,
                   const __nv_bfloat16* __restrict__ v, long long vb,
                   long long vs, long long vh, __nv_bfloat16* __restrict__ o,
-                  long long ob, long long os, long long oh, int S, int Hq,
-                  int rep, int causal, int window, float sl2,
+                  long long ob, long long os, long long oh, int S, int T,
+                  int Hq, int rep, int causal, int window, float sl2,
                   int vec) {
   using bf16 = __nv_bfloat16;
   constexpr int BQ = 64 * MT, P = D + 8, NJ = BK / 8, ND = D / 8;
@@ -389,13 +393,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
   const bf16* kp = k + b * kb + kvh * kh;
   const bf16* vp = v + b * vb + kvh * vh;
 
-  int n_kt = (S + BK - 1) / BK;
+  int n_kt = (T + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
   // the first K tile any row of the block reads (window: key q0 - W + 1)
   const int kt0 = window ? max(0, q0 - window + 1) / BK : 0;
   load_tile<BQ, D, P>(Qs, qp, qs, q0, S, vec);
-  load_tile<BK, D, P>(Ks, kp, ks, kt0 * BK, S, vec);
-  load_tile<BK, D, P>(Vs, vp, vs, kt0 * BK, S, vec);
+  load_tile<BK, D, P>(Ks, kp, ks, kt0 * BK, T, vec);
+  load_tile<BK, D, P>(Vs, vp, vs, kt0 * BK, T, vec);
   cp_async_commit();
 
   float acc[MT][ND][4], m[MT][2], l[MT][2];
@@ -413,8 +417,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
   for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BK, buf = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {
-      load_tile<BK, D, P>(Ks + (buf ^ 1) * BK * P, kp, ks, k0 + BK, S, vec);
-      load_tile<BK, D, P>(Vs + (buf ^ 1) * BK * P, vp, vs, k0 + BK, S, vec);
+      load_tile<BK, D, P>(Ks + (buf ^ 1) * BK * P, kp, ks, k0 + BK, T, vec);
+      load_tile<BK, D, P>(Vs + (buf ^ 1) * BK * P, vp, vs, k0 + BK, T, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -453,8 +457,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, long long qb,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        if (needs_mask<BK>(k0, w0 + 64 * i, S, causal, window))
-          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal, window);
+        if (needs_mask<BK>(k0, w0 + 64 * i, T, causal, window))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, T, causal, window);
         float alpha[2];
         softmax_tile(sc[i], m[i], l[i], alpha, sl2);
 #pragma unroll
@@ -539,8 +543,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
                  long long ks, long long kh, const float* __restrict__ v,
                  long long vb, long long vs, long long vh,
                  float* __restrict__ o, long long ob, long long os,
-                 long long oh, int S, int Hq, int rep, int causal, int window,
-                 float sl2, int vec) {
+                 long long oh, int S, int T, int Hq, int rep, int causal,
+                 int window, float sl2, int vec) {
   constexpr int BQ = 64 * MT, NJ = BK / 8, ND = D / 8;
   constexpr int PK = F32Pitch<D>::K, PV = F32Pitch<D>::V;
   extern __shared__ __align__(16) float smem[];
@@ -559,13 +563,13 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
   const float* kp = k + b * kb + kvh * kh;
   const float* vp = v + b * vb + kvh * vh;
 
-  int n_kt = (S + BK - 1) / BK;
+  int n_kt = (T + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
   // the first K tile any row of the block reads (window: key q0 - W + 1)
   const int kt0 = window ? max(0, q0 - window + 1) / BK : 0;
   load_tile<BQ, D, PK>(Qs, qp, qs, q0, S, vec);
-  load_tile<BK, D, PK>(Ks, kp, ks, kt0 * BK, S, vec);
-  load_tile<BK, D, PV>(Vs, vp, vs, kt0 * BK, S, vec);
+  load_tile<BK, D, PK>(Ks, kp, ks, kt0 * BK, T, vec);
+  load_tile<BK, D, PV>(Vs, vp, vs, kt0 * BK, T, vec);
   cp_async_commit();
 
   float acc[MT][ND][4], m[MT][2], l[MT][2];
@@ -583,8 +587,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
   for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BK, buf = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {
-      load_tile<BK, D, PK>(Ks + (buf ^ 1) * BK * PK, kp, ks, k0 + BK, S, vec);
-      load_tile<BK, D, PV>(Vs + (buf ^ 1) * BK * PV, vp, vs, k0 + BK, S, vec);
+      load_tile<BK, D, PK>(Ks + (buf ^ 1) * BK * PK, kp, ks, k0 + BK, T, vec);
+      load_tile<BK, D, PV>(Vs + (buf ^ 1) * BK * PV, vp, vs, k0 + BK, T, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -637,8 +641,8 @@ flash_f32_kernel(const float* __restrict__ q, long long qb, long long qs,
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        if (needs_mask<BK>(k0, w0 + 64 * i, S, causal, window))
-          mask_scores(sc[i], k0, w0 + 64 * i + g, t, S, causal, window);
+        if (needs_mask<BK>(k0, w0 + 64 * i, T, causal, window))
+          mask_scores(sc[i], k0, w0 + 64 * i + g, t, T, causal, window);
         float alpha[2];
         softmax_tile(sc[i], m[i], l[i], alpha, sl2);
 #pragma unroll
@@ -713,8 +717,8 @@ template <typename T, auto Kernel>
 cudaError_t launch_flash(int smem, int bq, const void* q, const long long* qst,
                          const void* k, const long long* kst, const void* v,
                          const long long* vst, void* o, const long long* ost,
-                         int B, int S, int Hq, int G, int D, int causal,
-                         int window, cudaStream_t stream) {
+                         int B, int S, int Tk, int Hq, int G, int D,
+                         int causal, int window, cudaStream_t stream) {
   cudaError_t err = smem_once<Kernel>(smem);
   if (err != cudaSuccess) return err;
   const int vec = aligned16(q, qst, sizeof(T)) &&
@@ -724,7 +728,7 @@ cudaError_t launch_flash(int smem, int bq, const void* q, const long long* qst,
       static_cast<const T*>(q), qst[0], qst[1], qst[2],
       static_cast<const T*>(k), kst[0], kst[1], kst[2],
       static_cast<const T*>(v), vst[0], vst[1], vst[2], static_cast<T*>(o),
-      ost[0], ost[1], ost[2], S, Hq, Hq / G, causal, window,
+      ost[0], ost[1], ost[2], S, Tk, Hq, Hq / G, causal, window,
       1.4426950408889634f / sqrtf((float)D), vec);
   return cudaGetLastError();
 }
@@ -733,30 +737,31 @@ template <int D>
 cudaError_t launch_flash_d(int bf16, const void* q, const long long* qst,
                            const void* k, const long long* kst,
                            const void* v, const long long* vst, void* o,
-                           const long long* ost, int B, int S, int Hq, int G,
-                           int causal, int window, cudaStream_t s) {
+                           const long long* ost, int B, int S, int T, int Hq,
+                           int G, int causal, int window, cudaStream_t s) {
   constexpr int MTh = flash_tile<D>(0), BKh = flash_tile<D>(1);
   constexpr int MTf = flash_tile<D>(2), BKf = flash_tile<D>(3);
   if (bf16)
     return launch_flash<__nv_bfloat16, flash_bf16_kernel<D, MTh, BKh>>(
         flash_bf16_smem<D, MTh, BKh>(), 64 * MTh, q, qst, k, kst, v, vst, o,
-        ost, B, S, Hq, G, D, causal, window, s);
+        ost, B, S, T, Hq, G, D, causal, window, s);
   return launch_flash<float, flash_f32_kernel<D, MTf, BKf>>(
       flash_f32_smem<D, MTf, BKf>(), 64 * MTf, q, qst, k, kst, v, vst, o,
-      ost, B, S, Hq, G, D, causal, window, s);
+      ost, B, S, T, Hq, G, D, causal, window, s);
 }
 
 cudaError_t dispatch_flash(int bf16, const void* q, const long long* qst,
                            const void* k, const long long* kst,
                            const void* v, const long long* vst, void* o,
-                           const long long* ost, int B, int S, int Hq, int G,
-                           int hd, int causal, int window, cudaStream_t s) {
+                           const long long* ost, int B, int S, int T, int Hq,
+                           int G, int hd, int causal, int window,
+                           cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_flash_d<16>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
-    case 32: return launch_flash_d<32>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
-    case 64: return launch_flash_d<64>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
-    case 128: return launch_flash_d<128>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
-    case 256: return launch_flash_d<256>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, Hq, G, causal, window, s);
+    case 16: return launch_flash_d<16>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, T, Hq, G, causal, window, s);
+    case 32: return launch_flash_d<32>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, T, Hq, G, causal, window, s);
+    case 64: return launch_flash_d<64>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, T, Hq, G, causal, window, s);
+    case 128: return launch_flash_d<128>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, T, Hq, G, causal, window, s);
+    case 256: return launch_flash_d<256>(bf16, q, qst, k, kst, v, vst, o, ost, B, S, T, Hq, G, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1644,19 +1649,23 @@ extern "C" {
 // the last axis of every operand is contiguous.  bf16 = 1 means q/k/v (and
 // the output) are bfloat16, else float32.
 
-// B10.  q (B, S, Hq, hd), k/v (B, S, G, hd), o (B, S, Hq, hd); hd in
+// B10.  q (B, S, Hq, hd), k/v (B, T, G, hd), o (B, S, Hq, hd): S query
+// rows over T keys (kv_seq; keys at or past T are masked); hd in
 // {16, 32, 64, 128, 256}; Hq a multiple of G; window W > 0 masks the keys
-// W or more below a row (i - j >= W), 0 none.
+// W or more below a row (i - j >= W), 0 none.  causal or a window needs
+// T == S (the diagonal is the self-attention's).
 int flash_attention_fwd(const void* q, const long long* q_st, const void* k,
                         const long long* k_st, const void* v,
                         const long long* v_st, void* o, const long long* o_st,
-                        int batch, int seq, int heads, int kv_heads, int hd,
-                        int causal, int window, int bf16, void* stream) {
-  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
-      window < 0)
+                        int batch, int seq, int kv_seq, int heads,
+                        int kv_heads, int hd, int causal, int window,
+                        int bf16, void* stream) {
+  if (batch <= 0 || seq <= 0 || kv_seq <= 0 || kv_heads <= 0 ||
+      heads % kv_heads != 0 || window < 0 ||
+      ((causal || window) && kv_seq != seq))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_flash(bf16, q, q_st, k, k_st, v, v_st, o, o_st, batch,
-                             seq, heads, kv_heads, hd, causal, window,
+                             seq, kv_seq, heads, kv_heads, hd, causal, window,
                              static_cast<cudaStream_t>(stream));
 }
 

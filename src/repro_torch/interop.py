@@ -87,17 +87,22 @@ def _tree_from_numpy(tree, dev: torch.device):
 
 def lm_params_from_numpy(tree, device=None):
     """The JAX package's LM parameter tree (``repro.models.transformer.
-    init_params``), its leaves already numpy arrays, as the port's tree of
-    tensors on ``device`` (default ``cuda:0``): the same dicts, lists and
-    tuples, dtypes kept (bf16 weights and expert stacks; f32 norms, MoE
-    routers, mLSTM gate projections, RG-LRU Λ and sLSTM biases)."""
+    init_params``, or ``repro.models.encdec.init_encdec_params``'s
+    ``{"embed", "enc", "dec", "enc_norm", "final_norm"}``), its leaves
+    already numpy arrays, as the port's tree of tensors on ``device``
+    (default ``cuda:0``): the same dicts, lists and tuples, dtypes kept
+    (bf16 weights and expert stacks; f32 norms, MoE routers, mLSTM gate
+    projections, RG-LRU Λ and sLSTM biases).  A single array comes across
+    the same way: the image embeddings ``aux`` of a VLM or the frames of
+    an encoder-decoder, bf16 bit for bit."""
     return _tree_from_numpy(tree, resolve_device(device))
 
 
 def lm_cache_from_numpy(tree, device=None):
     """The JAX package's decode cache (raw bf16 k/v, or the compressed
-    uint8 codes and signs with f32 scales; recurrent states, f32 but for
-    the RG-LRU's conv taps in the model's dtype), its leaves already numpy
-    arrays, as the port's tree of writable tensors on ``device`` (default
-    ``cuda:0``), dtypes kept."""
+    uint8 codes and signs with f32 scales, cross-attention entries of the
+    image tokens among them; an encoder-decoder's ``{"k", "v", "xk",
+    "xv"}``; recurrent states, f32 but for the RG-LRU's conv taps in the
+    model's dtype), its leaves already numpy arrays, as the port's tree of
+    writable tensors on ``device`` (default ``cuda:0``), dtypes kept."""
     return _tree_from_numpy(tree, resolve_device(device))

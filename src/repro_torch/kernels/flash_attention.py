@@ -7,9 +7,11 @@ flash_attention``:
 * ``flash_attention(q, k, v, causal=True)`` — the TPU signature, q/k/v
   (BH, S, hd) -> (BH, S, hd);
 * ``flash_attention_gqa(q, k, v, causal=True, window=0)`` — the same
-  kernel in the model's layout, q (B, S, Hq, hd) and k/v (B, S, G, hd) ->
+  kernel in the model's layout, q (B, S, Hq, hd) and k/v (B, T, G, hd) ->
   (B, S, Hq, hd), query head h reading kv head h // (Hq / G): the attention
-  core of ``models.attention.attention_full``.
+  core of ``models.attention.attention_full`` (T = S) and of
+  ``attention_cross``'s prefill (T keys of the image or encoder source, T
+  != S, unmasked; ``causal`` or a window with T != S raises).
 
 ``window`` W > 0 also masks i - j >= W, the sliding window of gemma3's
 local layers that ``repro`` applies in XLA around its own attention
@@ -60,7 +62,7 @@ def _kernels() -> dict:
         _fns = build.bind("attention", {
             "flash_attention": ("flash_attention_fwd",
                                 [p, st, p, st, p, st, p, st, i32, i32, i32,
-                                 i32, i32, i32, i32, i32, p]),
+                                 i32, i32, i32, i32, i32, i32, p]),
         }, "attention_cuda_error_string")
     return _fns
 
@@ -72,9 +74,9 @@ def _strides(t: torch.Tensor):
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: int, dev: torch.device) -> torch.Tensor:
-    """q (B, S, Hq, hd), k/v (B, S, G, hd) on ``dev`` -> (B, S, Hq, hd)."""
+    """q (B, S, Hq, hd), k/v (B, T, G, hd) on ``dev`` -> (B, S, Hq, hd)."""
     B, S, Hq, hd = q.shape
-    G = k.shape[2]
+    T, G = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: hd={hd} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -89,7 +91,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = fns["flash_attention"](
             q.data_ptr(), _strides(q), k.data_ptr(), _strides(k),
             v.data_ptr(), _strides(v), out.data_ptr(), _strides(out), B, S,
-            Hq, G, hd, int(causal), window, int(q.dtype == torch.bfloat16),
+            T, Hq, G, hd, int(causal), window,
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
@@ -116,19 +119,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype,
+    """q (B, S, Hq, hd), k/v (B, T, G, hd) -> (B, S, Hq, hd) in q's dtype,
     query head h attending with kv head h // (Hq / G); ``window`` > 0
-    masks the keys ``window`` or more below the query (i - j >= W)."""
+    masks the keys ``window`` or more below the query (i - j >= W).  T !=
+    S (cross-attention) attends to every key: ``causal`` and ``window``
+    need T == S."""
     if isinstance(window, bool) or int(window) != window or window < 0:
         raise ValueError(f"flash_attention_gqa: window must be an int >= 0, "
                          f"got {window!r}")
     window = int(window)
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]
-            or q.shape[2] % k.shape[2]):
+            or k.shape[0] != q.shape[0] or k.shape[1] < 1
+            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]):
         raise ValueError(f"flash_attention_gqa: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} do not form "
-                         "(B, S, Hq, hd) x (B, S, G, hd) with G | Hq")
+                         "(B, S, Hq, hd) x (B, T, G, hd) with G | Hq")
+    if k.shape[1] != q.shape[1] and (causal or window):
+        raise ValueError(f"flash_attention_gqa: {q.shape[1]} queries over "
+                         f"{k.shape[1]} keys: causal and window masks need "
+                         "as many keys as queries")
     dev = _cuda_device((q, k, v), "flash_attention_gqa")
     if dev is None:
         return flash_attention_gqa_ref(q, k, v, causal, window)

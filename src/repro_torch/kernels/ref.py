@@ -293,18 +293,22 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q/k/v (..., S, hd) -> (..., S, hd) f32, masked to j <= i when
-    ``causal`` (``tests/test_kernels_flash.py``'s oracle) and to i - j <
-    ``window`` when it is > 0 (``repro.models.attention.attention_full``'s
-    sliding window).  For bf16 inputs the probabilities are rounded to bf16
-    before P·V, as ``repro.models.attention._gqa_out`` rounds them (and the
-    kernel's bf16 P·V on the tensor cores does)."""
-    S = q.shape[-2]
-    i = torch.arange(S, device=q.device)
-    d = i[:, None] - i[None, :]
-    mask = d >= 0 if causal else None
-    if window:
-        mask = d < window if mask is None else mask & (d < window)
+    """q (..., S, hd), k/v (..., T, hd) -> (..., S, hd) f32, masked to j
+    <= i when ``causal`` (``tests/test_kernels_flash.py``'s oracle) and to
+    i - j < ``window`` when it is > 0 (``repro.models.attention.
+    attention_full``'s sliding window); with neither, every one of the T
+    keys (cross-attention's softmax(q k^T) v).  For bf16 inputs the
+    probabilities are rounded to bf16 before P·V, as ``repro.models.
+    attention._gqa_out`` rounds them (and the kernel's bf16 P·V on the
+    tensor cores does)."""
+    mask = None
+    if causal or window:
+        i = torch.arange(q.shape[-2], device=q.device)
+        j = torch.arange(k.shape[-2], device=q.device)
+        d = i[:, None] - j[None, :]
+        mask = d >= 0 if causal else None
+        if window:
+            mask = d < window if mask is None else mask & (d < window)
     p_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else None
     return _attend(q.float(), k.float(), v.float(), mask, p_dtype)
 
@@ -312,13 +316,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_gqa_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
                             window: int = 0) -> torch.Tensor:
-    """q (B, S, Hq, hd), k/v (B, S, G, hd) -> (B, S, Hq, hd) in q's dtype;
+    """q (B, S, Hq, hd), k/v (B, T, G, hd) -> (B, S, Hq, hd) in q's dtype;
     query head h = g·rep + r reads kv head g (bf16: probabilities rounded
     to bf16 before P·V, as in :func:`flash_attention_ref`)."""
     B, S, Hq, hd = q.shape
     G = k.shape[2]
     qh = q.permute(0, 2, 1, 3).reshape(B, G, Hq // G, S, hd)
-    kh = k.permute(0, 2, 1, 3).unsqueeze(2)               # (B, G, 1, S, hd)
+    kh = k.permute(0, 2, 1, 3).unsqueeze(2)               # (B, G, 1, T, hd)
     vh = v.permute(0, 2, 1, 3).unsqueeze(2)
     out = flash_attention_ref(qh, kh, vh, causal, window)  # (B, G, rep, S, hd)
     return out.reshape(B, Hq, S, hd).permute(0, 2, 1, 3).to(q.dtype)

@@ -1,8 +1,9 @@
-"""GQA attention: full-sequence (train/prefill) and decode-with-cache.
+"""GQA attention: full-sequence (train/prefill), decode-with-cache, cross.
 
-The port of ``repro/models/attention.py`` for self-attention layers: GQA
-group sizes from MQA (granite kv=1) to MHA, qk-norm (qwen3), QKV bias
-(qwen1.5), sliding windows (gemma3's local layers) with ring caches.
+The port of ``repro/models/attention.py``: GQA group sizes from MQA
+(granite kv=1) to MHA, qk-norm (qwen3), QKV bias (qwen1.5), sliding
+windows (gemma3's local layers) with ring caches, and cross-attention
+(llama-vision's image layers, whisper's decoder).
 ``attention_full``'s attention core is the flash-attention kernel
 (``kernels/flash_attention.py``, B10), which sums in f32, rounds the
 probabilities to bf16 for P·V as ``_gqa_out`` does, never materialises the
@@ -10,10 +11,13 @@ scores, and applies the window itself; ``cfg.banded_local_attn`` takes the
 same call (``repro``'s ``_banded_window_attention`` computes the same
 function block-banded, to bound XLA's score buffers, which the kernel never
 has).  The raw-cache decode stays plain torch, as it is plain XLA in the
-JAX package.  Softmax accumulates in f32; activations are bf16.
+JAX package.  ``attention_cross`` takes the same kernel over the T keys of
+its source (T != S, unmasked) when it projects them, and a plain softmax
+over every cached slot when it is handed a (k, v) pair, as ``repro``'s
+XLA does.  Softmax accumulates in f32; activations are bf16.
 
-Not ported yet (they raise ``NotImplementedError``): sequence-parallel
-attention (A12g) and cross-attention (A12e).
+Not ported yet (it raises ``NotImplementedError``): sequence-parallel
+attention (A12g).
 
 Caches are written in place: ``update_cache`` stores the new entries into
 the given (view of the stacked) cache tensors and returns them, where the
@@ -210,6 +214,25 @@ def attention_decode(x, prm, cfg: ModelConfig, cache_k, cache_v, pos, *,
 
 
 def attention_cross(x, prm, cfg: ModelConfig, kv_src=None, kv_cache=None):
-    """Cross-attention (llama-vision, whisper): not ported yet."""
-    raise NotImplementedError(
-        "cross-attention is not ported yet (ROADMAP A12e)")
+    """Cross-attention: queries from x (B, S, d), keys/values projected
+    from the encoder or image output ``kv_src`` (B, T, d) — or a
+    precomputed (k, v) pair (B, T, G, hd) in decode — with no RoPE, no
+    bias and no mask.  From ``kv_src`` the core is the flash-attention
+    kernel over T != S keys; from ``kv_cache`` a plain softmax over every
+    slot.  Returns (out, (k, v)) for caching."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = (x @ prm["wq"]).reshape(B, S, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, prm["q_norm"], cfg.norm_eps)
+    if kv_cache is not None:
+        k, v = kv_cache
+        probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1)
+        return _gqa_out(probs, v, cfg) @ prm["wo"], (k, v)
+    T = kv_src.shape[1]
+    k = (kv_src @ prm["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (kv_src @ prm["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, prm["k_norm"], cfg.norm_eps)
+    out = flash_attention_gqa(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ prm["wo"], (k, v)

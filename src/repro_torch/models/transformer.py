@@ -1,9 +1,11 @@
 """Decoder-only LM assembly over a layer-kind pattern.
 
-The port of ``repro/models/transformer.py`` for its decoder-only kinds:
+The port of ``repro/models/transformer.py``, every layer kind:
 
   attn / attn_local   GQA attention (full / sliding-window), with a dense
                       or an MoE feed-forward (``models/moe.py``)
+  cross_attn          cross-attention to the stub image embeddings ``aux``
+                      (B, n_image_tokens, d_model) of a VLM (llama-vision)
   rglru               RecurrentGemma temporal mixing (``models/recurrent.py``)
   mlstm / slstm       xLSTM blocks (``models/xlstm.py``)
 
@@ -19,7 +21,9 @@ attention cache (U, B, T, G, hd), a recurrent state (U, B, ...) — so
 weights and caches cross packages leaf by leaf
 (``interop.lm_params_from_numpy``).  A local layer's cache holds
 min(max_len, W) slots, a ring once the prompt is longer than W
-(``repro``'s layout: position p in slot p % W).  ``lax.scan`` over the
+(``repro``'s layout: position p in slot p % W).  A cross-attention
+layer's cache holds the image's k/v, written once by prefill and read
+whole at every step: ``pos`` never indexes it.  ``lax.scan`` over the
 units becomes a Python loop over views of the stacked tensors; prefill
 and decode write each layer's cache entry or new recurrent state into
 those views in place and return the same cache.  Decode's ``pos`` becomes
@@ -28,8 +32,9 @@ no layer reads it on the host: the step is one CUDA graph when captured
 (``serving.step``), as ``repro``'s is one XLA program under ``jax.jit``
 with pos traced.
 
-Not ported yet (``NotImplementedError``): the layer kind ``cross_attn``
-and encoder-decoder models (A12e), and ``loss_fn`` (training, A12f).
+Encoder-decoder models (whisper) run through ``models/encdec.py``; this
+module refuses them.  Not ported yet (``NotImplementedError``):
+``loss_fn`` (training, A12f).
 """
 from __future__ import annotations
 
@@ -48,28 +53,26 @@ __all__ = ["init_params", "forward_train", "forward_prefill",
            "forward_decode", "init_decode_cache", "decode_pos",
            "check_decode_pos", "state_leaves"]
 
+#: self-attention kinds: a cache of sequence positions, indexed by pos
 ATTN_KINDS = ("attn", "attn_local")
+#: cross-attention: a cache of the image's k/v, read whole at any pos
+CROSS_KINDS = ("cross_attn",)
 STATE_KINDS = ("rglru", "mlstm", "slstm")
-_UNPORTED_KINDS = {"cross_attn": "A12e"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    """Raise ``ValueError`` for a config this module does not run."""
     if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP A12e)")
+        raise ValueError(f"{cfg.name}: an encoder-decoder model runs "
+                         "through models.encdec, not the decoder-only LM")
     for kind in cfg.pattern:
-        if kind in _UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet "
-                f"(ROADMAP {_UNPORTED_KINDS[kind]})")
-        if kind not in ATTN_KINDS + STATE_KINDS:
+        if kind not in ATTN_KINDS + CROSS_KINDS + STATE_KINDS:
             raise ValueError(kind)
 
 
 def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
-    return kind in ATTN_KINDS and (cfg.d_ff > 0 or cfg.moe is not None)
+    return (kind in ATTN_KINDS + CROSS_KINDS
+            and (cfg.d_ff > 0 or cfg.moe is not None))
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -105,7 +108,7 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device,
     d = cfg.d_model
     prm = {"ln1": torch.zeros(lead + (d,), dtype=torch.float32,
                               device=device)}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS + CROSS_KINDS:
         prm["attn"] = A.init_attn_params(gen, cfg, dtype, device, lead)
     else:
         prm["mix"] = _MIXERS[kind](gen, cfg, dtype, device, lead)
@@ -159,16 +162,18 @@ def _ffn(cfg: ModelConfig, kind: str, x, prm):
 
 
 def _write_state(cache, state: dict) -> None:
-    """Copy a layer's new recurrent state into its cache views."""
+    """Copy a layer's new tensors (its recurrent state, or a cross
+    layer's image k/v) into its cache views."""
     for key, t in state.items():
         cache[key].copy_(t)
 
 
-def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions,
+def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions, aux,
                       cache):
     """Full-sequence pass; writes the layer's cache entry into ``cache``
     (its views, or None): k/v from slot 0, or for a prompt longer than a
     local layer's ring its last Tc positions p at slots p % Tc; a
+    cross-attention layer's k/v of the image embeddings ``aux``; a
     recurrent layer's final state."""
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
     want = cache is not None
@@ -184,6 +189,10 @@ def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions,
                 cache["v"].index_copy_(1, slots, v[:, S - Tc:])
             else:
                 A.update_cache(cache["k"], cache["v"], k, v, 0)
+    elif kind == "cross_attn":
+        mix, (k, v) = A.attention_cross(h, prm["attn"], cfg, kv_src=aux)
+        if want:
+            _write_state(cache, {"k": k, "v": v})
     elif kind == "rglru":
         mix, (hlast, conv) = R.rglru_full(h, prm["mix"], cfg)
         if want:
@@ -212,6 +221,13 @@ def _apply_layer_decode(cfg: ModelConfig, kind: str, x, prm, pos, cache):
         else:
             mix, _, _ = A.attention_decode(h, prm["attn"], cfg, cache["k"],
                                            cache["v"], pos, window=W)
+    elif kind == "cross_attn":
+        if "codes_k" in cache:       # pwrel-compressed image k/v
+            from ..serving import kvcache as KV
+            mix = KV.compressed_cross_decode(h, prm["attn"], cfg, cache)
+        else:
+            mix, _ = A.attention_cross(h, prm["attn"], cfg,
+                                       kv_cache=(cache["k"], cache["v"]))
     elif kind == "rglru":
         mix, hn, conv = R.rglru_decode(h, prm["mix"], cfg, cache["h"],
                                        cache["conv"])
@@ -265,28 +281,32 @@ def _logits(cfg: ModelConfig, params, x):
 
 
 def forward_train(cfg: ModelConfig, params, tokens, aux=None):
-    """tokens (B, S) -> logits (B, S, V) f32 (forward only)."""
+    """tokens (B, S) -> logits (B, S, V) f32 (forward only); ``aux`` the
+    image embeddings (B, n_image_tokens, d_model) a cross-attention layer
+    reads."""
     check_supported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
     for kind, prm, _ in _layers(cfg, params, None):
-        x = _apply_layer_full(cfg, kind, x, prm, positions, None)
+        x = _apply_layer_full(cfg, kind, x, prm, positions, aux, None)
     return _logits(cfg, params, x)
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, aux=None,
                     max_len: int | None = None):
     """tokens (B, S) -> (last-position logits (B, V), decode cache with
-    room for ``max_len`` positions)."""
+    room for ``max_len`` positions; a cross-attention entry holds the k/v
+    of ``aux``'s image tokens)."""
     check_supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     positions = torch.arange(S, device=tokens.device)
-    cache = init_decode_cache(cfg, B, max_len, params["embed"].dtype,
-                              tokens.device)
+    cache = init_decode_cache(
+        cfg, B, max_len, params["embed"].dtype, tokens.device,
+        n_image_tokens=None if aux is None else aux.shape[1])
     x = _embed(cfg, params, tokens)
     for kind, prm, c in _layers(cfg, params, cache):
-        x = _apply_layer_full(cfg, kind, x, prm, positions, c)
+        x = _apply_layer_full(cfg, kind, x, prm, positions, aux, c)
     return _logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
 
 
@@ -315,9 +335,10 @@ def _entries(cfg: ModelConfig, cache) -> list:
 
 
 def check_decode_pos(cfg: ModelConfig, cache, pos: int) -> int:
-    """A host int ``pos`` range-checked against every attention cache that
-    is not a ring (a local layer's cache of exactly W slots takes any
-    pos; a recurrent state any)."""
+    """A host int ``pos`` range-checked against every self-attention cache
+    that is not a ring (a local layer's cache of exactly W slots takes any
+    pos; a cross-attention cache, read whole, and a recurrent state
+    any)."""
     if isinstance(pos, bool) or int(pos) != pos or pos < 0:
         raise ValueError(f"forward_decode: pos must be an int >= 0, got "
                          f"{pos!r}")
@@ -347,7 +368,8 @@ def forward_decode(cfg: ModelConfig, params, token, cache, pos,
     written into ``cache`` at ``pos`` in place.  ``pos`` is a host int or
     a 0-d int32 tensor on the token's device (:func:`decode_pos`); below
     this line every layer sees the tensor, so the step reads nothing back
-    from the device.
+    from the device.  ``aux`` is not read: a cross-attention layer reads
+    the image's k/v from its cache, as ``repro``'s does.
 
     ``kv_codec`` is informational — the compressed path triggers off the
     cache's own leaves (``codes_k`` present => pwrel-compressed KV).
@@ -362,11 +384,13 @@ def forward_decode(cfg: ModelConfig, params, token, cache, pos,
 
 
 def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                 n_layers: int, dtype, device) -> dict:
+                 n_layers: int, dtype, device, n_img: int) -> dict:
     """Zero cache entry of ``n_layers`` layers of ``kind``, stacked."""
     if kind in ATTN_KINDS:
         return A.init_cache(cfg, batch, _cache_len(cfg, kind, max_len),
                             n_layers, dtype, device)
+    if kind == "cross_attn":
+        return A.init_cache(cfg, batch, n_img, n_layers, dtype, device)
     if kind == "rglru":
         return R.init_rglru_state(cfg, batch, n_layers, dtype, device)
     if kind == "mlstm":
@@ -375,18 +399,22 @@ def _cache_entry(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      dtype=torch.bfloat16, device=None):
+                      dtype=torch.bfloat16, device=None,
+                      n_image_tokens: int | None = None):
     """Zero cache in the layout ``forward_decode`` reads: per pattern
     position a stacked entry over the units, per remainder layer an
     unstacked one.  An attention entry is a (U, B, T, G, hd) k/v pair, T
-    ``max_len``, for a local layer min(max_len, W) (its ring); a recurrent
-    one its state (f32, the RG-LRU's conv taps in ``dtype``)."""
+    ``max_len``, for a local layer min(max_len, W) (its ring), for a
+    cross-attention layer ``n_image_tokens`` (default
+    ``cfg.n_image_tokens``); a recurrent one its state (f32, the RG-LRU's
+    conv taps in ``dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    n_img = n_image_tokens or cfg.n_image_tokens
     units = tuple(_cache_entry(cfg, kind, batch, max_len, cfg.n_units,
-                               dtype, dev)
+                               dtype, dev, n_img)
                   if cfg.n_units else () for kind in cfg.pattern)
     rem = tuple(_index(_cache_entry(cfg, cfg.pattern[i], batch, max_len, 1,
-                                    dtype, dev), 0)
+                                    dtype, dev, n_img), 0)
                 for i in range(cfg.n_remainder))
     return {"units": units, "rem": rem}

@@ -20,7 +20,10 @@ dequantize-attention kernel (``kernels/kv_dequant_attention.py``, B11),
 which reads the stacked cache in place; each new entry is quantized once
 and written into the cache in place (``_update_q``), at the device
 position ``pos`` (a 0-d int32 tensor: no host sync, so the step can be
-captured), in ring mode at slot pos % T as ``repro``'s.
+captured), in ring mode at slot pos % T as ``repro``'s.  A cross-attention
+layer's compressed image k/v (``compressed_cross_decode``) goes through the
+same kernel over all its T slots: ``repro`` dequantizes that cache to bf16
+and attends unmasked, which is B11 at pos = T - 1.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ from ..kernels.ref import KV_CODE_MAX, KV_STEP, kv_dequant_ref
 from ..models import attention as A
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from ..models.layers import rms_norm
 
 __all__ = ["quantize_kv", "dequantize_kv", "compress_prefill_cache",
-           "compressed_attention_decode", "make_compressed_decode_step",
-           "kv_bytes_ratio"]
+           "compressed_attention_decode", "compressed_cross_decode",
+           "make_compressed_decode_step", "kv_bytes_ratio"]
 
 def kv_bytes_ratio(hd: int) -> float:
     """bf16 bytes / compressed bytes per element."""
@@ -141,9 +145,49 @@ def compressed_attention_decode(x, prm, cfg: ModelConfig, qcache: dict,
     return out, qcache
 
 
+_LAST_SLOTS: dict = {}
+
+
+def _last_slot(T: int, device: torch.device) -> torch.Tensor:
+    """T - 1 as a 0-d int32 tensor on ``device``, made once per (T,
+    device) and never written: the pos of a read over every slot."""
+    key = (T, device)
+    if key not in _LAST_SLOTS:
+        _LAST_SLOTS[key] = torch.full((), T - 1, dtype=torch.int32,
+                                      device=device)
+    return _LAST_SLOTS[key]
+
+
+def compressed_cross_decode(x, prm, cfg: ModelConfig, qcache: dict):
+    """attention_cross of x (B, 1, d) against a quantized cross cache (the
+    image's k/v, (B, T, G, ·) leaves, written by prefill and never here):
+    the fused dequantize-attention kernel over every slot, at pos = T - 1
+    held on the device (no host sync: the step stays capturable), with
+    K/V and the probabilities rounded to bf16 and the output rounded to
+    bf16 before ``wo``, as ``repro``'s dequantize-to-bf16 then
+    ``attention_cross`` rounds them."""
+    B = x.shape[0]
+    q = (x @ prm["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, prm["q_norm"], cfg.norm_eps)
+    pos = _last_slot(qcache["codes_k"].shape[1], x.device)
+    leaves = [_unpack(qcache, key)[f] for key in ("k", "v")
+              for f in ("codes", "signs", "scale")]
+    out = kv_dequant_decode_attention_gqa(q, *leaves, pos,
+                                          kv_dtype=torch.bfloat16)
+    return out.to(torch.bfloat16).to(x.dtype).reshape(B, 1, -1) @ prm["wo"]
+
+
 def make_compressed_decode_step(cfg: ModelConfig):
     """Decode step whose attention cache leaves are quantized (recurrent
-    states stay raw)."""
+    states stay raw).  ``repro`` decodes an encoder-decoder model on raw
+    caches only (its compressed step is the decoder-only one), so an
+    ``"audio"`` config raises ``ValueError``."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: an encoder-decoder model decodes on "
+                         "raw caches only (make_decode_step), as in repro; "
+                         "there is no compressed encoder-decoder step")
+
     def decode(params, batch):
         return T.forward_decode(cfg, params, batch["token"], batch["cache"],
                                 batch["pos"], batch.get("aux"),

@@ -1,9 +1,9 @@
 """Serve-step factories: prefill (full prompt -> cache) and decode (1 tok),
 and the decode step captured as one CUDA graph.
 
-The port of ``repro/serving/step.py`` for decoder-only models (attention,
-MoE and recurrent layers); the encoder-decoder (``"audio"``) family is
-not ported yet (ROADMAP A12e).
+The port of ``repro/serving/step.py``: decoder-only models (attention,
+cross-attention, MoE and recurrent layers) through ``models/transformer``,
+the encoder-decoder (``"audio"``) family through ``models/encdec``.
 
 ``repro`` runs a decode step as one compiled program: ``jax.jit`` over
 ``forward_decode`` with ``pos`` traced (``examples/serve_lm.py``).  Its
@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import flash_attention, kv_dequant_attention
+from ..models import encdec as E
 from ..models import transformer as T
 from ..models.config import ModelConfig
 
@@ -31,28 +32,33 @@ __all__ = ["make_prefill_step", "make_decode_step", "CapturedDecodeStep",
 _KERNEL_MODULES = (flash_attention, kv_dequant_attention)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder serving steps are not ported "
-            "yet (ROADMAP A12e)")
+def _model(cfg: ModelConfig):
+    """The module that runs ``cfg``'s decode: its pos checks and states."""
+    return E if cfg.family == "audio" else T
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int | None = None):
-    _check_family(cfg)
-
-    def prefill(params, batch):
-        return T.forward_prefill(cfg, params, batch["tokens"],
-                                 batch.get("aux"), max_len=max_len)
+    if cfg.family == "audio":
+        def prefill(params, batch):
+            return E.encdec_prefill(cfg, params, batch["frames"],
+                                    batch["tokens"], max_len=max_len)
+    else:
+        def prefill(params, batch):
+            return T.forward_prefill(cfg, params, batch["tokens"],
+                                     batch.get("aux"), max_len=max_len)
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
-    _check_family(cfg)
-
-    def decode(params, batch):
-        return T.forward_decode(cfg, params, batch["token"], batch["cache"],
-                                batch["pos"], batch.get("aux"))
+    if cfg.family == "audio":
+        def decode(params, batch):
+            return E.encdec_decode(cfg, params, batch["token"],
+                                   batch["cache"], batch["pos"])
+    else:
+        def decode(params, batch):
+            return T.forward_decode(cfg, params, batch["token"],
+                                    batch["cache"], batch["pos"],
+                                    batch.get("aux"))
     return decode
 
 
@@ -69,9 +75,10 @@ def _set_counts(counts: dict[str, int]) -> None:
 def warm_up(cfg: ModelConfig, decode, params, batch) -> None:
     """Run the decode step once (which builds its kernels, sizes their
     grids and sets their attributes) and put back the recurrent states it
-    advanced (``transformer.state_leaves``): the attention entries it
-    wrote are the ones the next run of the step writes again."""
-    states = T.state_leaves(cfg, batch["cache"])
+    advanced (``transformer.state_leaves``; an encoder-decoder cache has
+    none): the attention entries it wrote are the ones the next run of the
+    step writes again."""
+    states = _model(cfg).state_leaves(cfg, batch["cache"])
     saved = [t.clone() for t in states]
     decode(params, batch)
     for t, old in zip(states, saved):
@@ -80,8 +87,9 @@ def warm_up(cfg: ModelConfig, decode, params, batch) -> None:
 
 class CapturedDecodeStep:
     """A decode step (``make_decode_step(cfg)`` or
-    ``make_compressed_decode_step(cfg)``'s function) over ``params`` and
-    the CUDA ``cache`` it writes in place, captured as one CUDA graph.
+    ``make_compressed_decode_step(cfg)``'s function; an encoder-decoder's
+    ``encdec_decode`` too) over ``params`` and the CUDA ``cache`` it
+    writes in place, captured as one CUDA graph.
 
     ``step(token, pos)`` -> logits (B, V): ``token`` a (B, 1) int64 tensor
     on the card, ``pos`` a host int or a 0-d int32 tensor there.  The first
@@ -118,7 +126,8 @@ class CapturedDecodeStep:
                              f"step on a CUDA device, not {token.device}")
         dev = token.device
         self._token = token.clone()
-        self._pos = T.decode_pos(self.cfg, self._cache, pos, dev).clone()
+        self._pos = _model(self.cfg).decode_pos(self.cfg, self._cache, pos,
+                                                dev).clone()
         batch = {"token": self._token, "cache": self._cache,
                  "pos": self._pos}
         stream = torch.cuda.Stream(dev)
@@ -141,7 +150,8 @@ class CapturedDecodeStep:
         if isinstance(pos, torch.Tensor):
             self._pos.copy_(pos)
         else:
-            self._pos.fill_(T.check_decode_pos(self.cfg, self._cache, pos))
+            self._pos.fill_(_model(self.cfg).check_decode_pos(
+                self.cfg, self._cache, pos))
         self.graph.replay()
         self.replays += 1
         return self.logits
