@@ -79,7 +79,16 @@ Phases, in order (any failure exits non-zero and prints no result):
                   recurrentgemma-2b (Hq 10, G 1, hd 256, W 2,048; rep 6,
                   7 and 10 leave a partial last block of query rows in
                   B11's grid): small cases, then B10 timed at each
-                  prefill's shape and B11 at its decode's.
+                  prefill's shape and B11 at its decode's.  Then B10
+                  under autograd (FlashAttentionFn) at a small causal,
+                  windowed and T != S shape in f32 and bf16: the output
+                  and flash_attention_gqa_bwd's dq, dk, dv against
+                  autograd through the plain version (within 1e-5, bf16
+                  one bf16 step, of max|g|); B10 timed at the train shape
+                  (B 2, S 2,048, Hq 32, G 8, hd 128, causal, bf16) and
+                  the backward there beside B10's forward and
+                  F.scaled_dot_product_attention's forward and forward +
+                  backward, with its TF32 bound.
 3. ops          — the kernels/ops.py entry points on one group plane of
                   2^22 amplitudes: quantize_block -> pack_codes ->
                   unpack_codes -> dequantize_block and pack_sign_bitmap ->
@@ -243,9 +252,35 @@ Phases, in order (any failure exits non-zero and prints no result):
                   captured raw decode steps (repro decodes whisper on raw
                   caches: no hand kernel a step), bit for bit equal, and
                   the plain run within 2e-2.
-22. report      — one JSON line of kernels (B10's and B11's launches
-                  summed over the serve phases), the card's name and
-                  power limit, and last the ok line.
+22. train       — qwen3-4b whole (36 layers, 4.02 B bf16 weights from
+                  --seed) trained on cuda:0 through
+                  repro_torch.train.step: step 0's loss and gradients
+                  through B10 (72 launches: 36 in the forward, 36 in the
+                  remat recompute) and again with its plain version
+                  patched in (0 launches): loss within 1e-2, each
+                  gradient leaf at cosine >= 0.99 (max|Δ|/max|g| printed
+                  per leaf), every leaf's gradient nonzero and finite;
+                  then 4 steps of make_train_step (the config's AdamW,
+                  f32 moments, lr 3e-4, remat on; B 2 x S 2,048 tokens of
+                  SyntheticTokens(--seed)), 72 B10 launches and a finite
+                  loss each; prints each step's loss, grad_norm and wall
+                  time, tokens/s and peak memory (with --profile the
+                  last step's device time: GEMMs, B10, the attention
+                  backward, the optimizer).
+23. train_gc    — qwen3-4b at full width cut to 4 of 36 layers (printed)
+                  with GradCompressor(1e-2) for 4 steps: residuals and
+                  losses finite, no gradient cut, one leaf's round trip
+                  within 1.01 b_r wherever its code is nonzero.
+24. train_runtime — reduced qwen3-4b through TrainRuntime on cuda:0,
+                  checkpoints every step in a temporary directory: a
+                  failure injected at step 2, restarted from the last
+                  checkpoint, equal bit for bit (parameters and optimizer
+                  state) to an uninterrupted run; then python -m
+                  repro_torch.launch.train --arch qwen3-4b --steps 3 as a
+                  subprocess, its [train] line printed.
+25. report      — one JSON line of kernels (B10's and B11's launches
+                  summed over the serve and train phases), the card's
+                  name and power limit, and last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
 or without the repository around it, it exits non-zero.
@@ -255,6 +290,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -363,6 +399,24 @@ WHISPER_ARCH, WHISPER_PROMPT, WHISPER_STEPS = "whisper-large-v3", 64, 16
 CROSS_FLASH = [(SERVE_BATCH, SERVE_PROMPT, 576, 64, 8, 128, False),
                (SERVE_BATCH, 1500, 1500, 20, 20, 64, False),
                (SERVE_BATCH, WHISPER_PROMPT, 1500, 20, 20, 64, False)]
+#: training: qwen3-4b whole, B 2 x S 2,048 tokens of SyntheticTokens(seed)
+#: a step, TRAIN_STEPS steps of the config's AdamW (f32 moments) at lr
+#: TRAIN_LR with remat; step 0 against the plain version's run: the loss
+#: within TRAIN_LOSS_RTOL, each gradient leaf at cosine >= TRAIN_GRAD_COS
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-4
+TRAIN_LOSS_RTOL, TRAIN_GRAD_COS = 1e-2, 0.99
+#: train_gc: qwen3-4b cut to 4 layers, GradCompressor(1e-2)
+TRAIN_GC_LAYERS, TRAIN_GC_BR = 4, 1e-2
+#: train_runtime: reduced qwen3-4b, a failure at step 2 of 5
+RUNTIME_STEPS, RUNTIME_FAIL_AT = 5, 2
+#: (B, S, T, Hq, G, hd, causal, window) of B10's autograd checks: causal,
+#: windowed, and over T != S keys; gradients within GRAD_RTOL (f32) or
+#: BF16_TOL_GRAD (bf16, one bf16 step) of max|g|
+TRAIN_GRAD = [(2, 256, 256, 8, 2, 128, True, 0),
+              (1, 300, 300, 4, 2, 256, True, 100),
+              (2, 130, 77, 8, 2, 64, False, 0)]
+GRAD_RTOL, BF16_TOL_GRAD = 1e-5, 2.0 ** -7
 
 
 def fail(msg: str) -> None:
@@ -1572,6 +1626,99 @@ def kvdq_timed(B: int, G: int, rep: int, T: int, hd: int, pos: int,
     return out
 
 
+def flash_grad_cases() -> list[dict]:
+    """B10 under autograd on the card (FlashAttentionFn: the kernel's
+    forward, flash_attention_gqa_bwd's gradients) against autograd
+    through the plain version, at a small causal, windowed and T != S
+    shape in f32 and bf16: the outputs as the forward cases hold them, the
+    gradients within 1e-5 (f32) or one bf16 step (2^-7) of max|g|."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out = []
+    for i, (B, S, T, Hq, G, hd, causal, window) in enumerate(TRAIN_GRAD):
+        g = torch.Generator(device="cuda:0").manual_seed(600 + i)
+        q = torch.randn((B, S, Hq, hd), generator=g, device="cuda:0")
+        k, v = torch.randn((2, B, T, G, hd), generator=g, device="cuda:0")
+        do = torch.randn((B, S, Hq, hd), generator=g, device="cuda:0")
+        for dt in (torch.float32, torch.bfloat16):
+            ops = [t.to(dt) for t in (q, k, v)]
+            lk = [t.clone().requires_grad_() for t in ops]
+            lp = [t.clone().requires_grad_() for t in ops]
+            got = fa.flash_attention_gqa(*lk, causal=causal, window=window)
+            want = ref.flash_attention_gqa_ref(*lp, causal, window)
+            if got.grad_fn is None:
+                fail("flash_attention under autograd returned no grad_fn")
+            gk = torch.autograd.grad(got, lk, do.to(dt))
+            gp = torch.autograd.grad(want, lp, do.to(dt))
+            bf = dt == torch.bfloat16
+            shape = {"B": B, "S": S, "T": T, "Hq": Hq, "G": G, "hd": hd,
+                     "causal": causal, "window": window,
+                     "dtype": str(dt).split(".")[-1]}
+            attn_check("flash_attention", got.detach(), want.detach(),
+                       {**shape, "autograd": True},
+                       atol=bf16_atol(ops[2]) if bf else ATTN_ATOL,
+                       rtol=BF16_RTOL if bf else 0.0)
+            for name, a, b in zip("qkv", gk, gp):
+                scale = float(b.float().abs().max())
+                tol = (BF16_TOL_GRAD if bf else GRAD_RTOL) * scale
+                out.append(attn_check(f"flash_attention_gqa_bwd_d{name}", a,
+                                      b, {**shape, "max_abs_grad": scale},
+                                      atol=tol))
+    return out
+
+
+def flash_bwd_timed(B: int, S: int, Hq: int, G: int, hd: int) -> dict:
+    """flash_attention_gqa_bwd at the train shape (causal, bf16) beside
+    B10's forward at that shape and F.scaled_dot_product_attention's
+    forward and forward + backward (kv heads expanded outside the timed
+    call).  Its bound: the seven TF32 products it runs (S, dP, dV, and dQ,
+    dK as two each) over the unmasked pairs at the TF32 rate, or its
+    bytes (q, k, v, dO read, dQ, dK, dV written)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda:0").manual_seed(9)
+    bases = gqa_operands(B, S, S, Hq, G, hd, g)
+    q, k, v = gqa_split(bases, Hq, G)
+    do = torch.randn((B, S, Hq, hd), generator=g,
+                     device="cuda:0").to(torch.bfloat16)
+    rep = Hq // G
+    pairs = window_pairs(S, 0)
+    ops = 7 * 2 * B * Hq * hd * pairs
+    nbytes = 2 * (3 * B * S * Hq * hd + 4 * B * S * G * hd)
+    lib = (q.transpose(1, 2).contiguous().requires_grad_(),
+           k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+           .requires_grad_(),
+           v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+           .requires_grad_())
+    dlib = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd(a, c, d):
+        o = F.scaled_dot_product_attention(a, c, d, is_causal=True)
+        torch.autograd.grad(o, (a, c, d), dlib)
+
+    def sdpa_fwd(a, c, d):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(a, c, d, is_causal=True)
+    inputs = [(q, k, v, do)]
+    out = {"B": B, "S": S, "Hq": Hq, "G": G, "hd": hd, "dtype": "bfloat16",
+           "causal": True,
+           "ms": cuda_ms(lambda a, c, d, e: fa.flash_attention_gqa_bwd(
+               a, c, d, e), inputs, iters=5, warmup=1),
+           "forward_ms": cuda_ms(lambda a, c, d, e: fa.flash_attention_gqa(
+               a, c, d), inputs),
+           "library_forward_ms": cuda_ms(sdpa_fwd, [lib]),
+           "library_forward_backward_ms": cuda_ms(sdpa_fwd_bwd, [lib],
+                                                  iters=5, warmup=1),
+           "arithmetic": "TF32 (bf16 values exact; dS split)"}
+    b, by = bound(nbytes, ops, TF32_FLOP_PER_S)
+    out.update(bound_ms=b, bound_by=by, bytes=nbytes, ops=ops)
+    print("kernel_time flash_attention_gqa_bwd " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def attention_phase() -> dict:
     """B10 and B11 against their plain versions, then timed."""
     b10 = [flash_case(BH, S, hd, causal, seed=200 + i)
@@ -1678,7 +1825,14 @@ def attention_phase() -> dict:
     b10 += [flash_timed_bf16(B, S, Hq, G, hd, T=T, causal=causal)
             for B, S, T, Hq, G, hd, causal in CROSS_FLASH]
     b11.append(kvdq_timed(SERVE_BATCH, 8, 8, 576, 128, 575, "bfloat16"))
-    return {"flash_attention": b10, "kv_dequant_decode_attention": b11}
+    # training (qwen3-4b, B 2 x S 2,048): B10 under autograd at small
+    # shapes, then the forward and the torch backward timed at the train
+    # shape
+    bwd = flash_grad_cases()
+    b10.append(flash_timed_bf16(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128))
+    bwd.append(flash_bwd_timed(TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128))
+    return {"flash_attention": b10, "kv_dequant_decode_attention": b11,
+            "flash_attention_gqa_bwd": bwd}
 
 
 # -- phase 3: the kernels/ops.py entry points ---------------------------------
@@ -3079,6 +3233,362 @@ def _leaves(tree):
         yield tree
 
 
+# -- phases 22-24: training ---------------------------------------------------
+
+def _train_batch(cfg, step: int, seed: int, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> dict:
+    """Step ``step``'s tokens of SyntheticTokens(seed) on cuda:0."""
+    import torch
+    from repro_torch.train.data import SyntheticTokens
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                          seed=seed)
+    return {"tokens": torch.from_numpy(src.batch(step)).to(
+        device="cuda:0", dtype=torch.int64)}
+
+
+def _grad_compare(got: dict, want: dict) -> list[dict]:
+    """Per gradient leaf (checkpoint keys): cosine of the two, max|Δ| over
+    max|want|, and whether ``got`` is nonzero; in f32, a slice at a
+    time."""
+    import torch
+    from repro_torch.optim.adamw import slices
+    out = []
+    for key, g in got.items():
+        dot = na = nb = torch.zeros((), dtype=torch.float64, device=g.device)
+        dmax = gmax = torch.zeros((), dtype=torch.float32, device=g.device)
+        for a, b in slices(g, want[key]):
+            a, b = a.float(), b.float()
+            dot = dot + (a * b).sum(dtype=torch.float64)
+            na = na + (a * a).sum(dtype=torch.float64)
+            nb = nb + (b * b).sum(dtype=torch.float64)
+            dmax = torch.maximum(dmax, (a - b).abs().max())
+            gmax = torch.maximum(gmax, b.abs().max())
+        cos = float(dot / (na.sqrt() * nb.sqrt()).clamp_min(1e-300))
+        out.append({"leaf": key, "cosine": cos,
+                    "max_rel_err": float(dmax / gmax.clamp_min(1e-30)),
+                    "nonzero": bool(na > 0),
+                    "finite": bool(torch.isfinite(na))})
+    return out
+
+
+class _Timed:
+    """CUDA events around each call of ``fn``: ``ms()`` sums their
+    device-timeline spans (read after a synchronize)."""
+
+    def __init__(self, fn):
+        self.fn, self.events = fn, []
+
+    def __call__(self, *args, **kw):
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kw)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class _TimedOptimizer:
+    """An optimizer whose update is timed by :class:`_Timed`."""
+
+    def __init__(self, opt):
+        self.opt, self.update = opt, _Timed(opt.update)
+
+    def init(self, params):
+        return self.opt.init(params)
+
+
+def _train_profile(prof, wall_s: float, bwd: _Timed,
+                   opt: _TimedOptimizer) -> dict:
+    """A traced train step's device time by kernel (the library GEMMs, B10,
+    the rest; the idle share of its wall time), and the device spans of
+    the attention backward's calls and of the optimizer update (CUDA
+    events around them)."""
+    out = device_profile(prof, wall_s)
+    gemm = b10 = 0.0
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if "flash_bf16_kernel" in e.key or "flash_f32_kernel" in e.key:
+            b10 += ms
+        elif any(w in e.key.lower() for w in LIBRARY_GEMM):
+            gemm += ms
+    out.update(gemm_ms=gemm, flash_attention_ms=b10,
+               attention_backward_ms=bwd.ms(),
+               attention_backward_calls=len(bwd.events),
+               optimizer_ms=opt.update.ms())
+    del out["library_gemm"]
+    return out
+
+
+def train_phase(seed: int, profile: bool) -> dict:
+    """qwen3-4b whole (36 layers, full width, 4.02 B bf16 weights from
+    ``seed``) trained on cuda:0: step 0's loss and gradients twice,
+    through B10 (exactly 2 launches a layer: the forward and the remat
+    recompute) and with its plain version patched in (0 launches): loss
+    within TRAIN_LOSS_RTOL, each gradient leaf at cosine >= TRAIN_GRAD_COS
+    (max|Δ|/max|g| printed), every leaf's gradient nonzero and finite;
+    then TRAIN_STEPS steps of make_train_step (the config's AdamW, f32
+    moments, lr TRAIN_LR, remat on), B 2 x S 2,048 tokens of
+    SyntheticTokens(seed) a step, each step's loss finite and 72 B10
+    launches.  Prints each step's loss, grad_norm and wall time, tokens/s
+    and peak memory (with ``profile`` the last step's device time by
+    part: the kernels by name, and the spans of the attention backward's
+    calls and of the optimizer update).  Returns the launches of the
+    steps."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.step import (init_train_state, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, weight_bytes = _init_model("train", TRAIN_ARCH, seed)
+    if not cfg.remat:
+        fail("train: qwen3-4b's config has remat off")
+    n_attn = cfg.n_layers
+    loss_fn = make_loss_fn(cfg)
+    batch0 = _train_batch(cfg, 0, seed)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, grads_k = value_and_grad(loss_fn, params, batch0)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    kernel_launches = read_counts()["flash_attention"]
+    with mock.patch.object(attn_mod, "flash_attention_gqa",
+                           _plain_flash_by_row):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss_p, grads_p = value_and_grad(loss_fn, params, batch0)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        plain_launches = read_counts()["flash_attention"]
+    leaves = _grad_compare(flatten(grads_k), flatten(grads_p))
+    del grads_k, grads_p
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+             "loss_rel_err": loss_rel, "loss_bound": TRAIN_LOSS_RTOL,
+             "min_cosine": min(c["cosine"] for c in leaves),
+             "cosine_bound": TRAIN_GRAD_COS,
+             "max_grad_rel_err": max(c["max_rel_err"] for c in leaves),
+             "kernel_launches": kernel_launches,
+             "plain_launches": plain_launches,
+             "kernel_s": t_kernel, "plain_s": t_plain}
+    print("train_step0_check " + json.dumps(check), flush=True)
+    for c in leaves:
+        print("train_grad_leaf " + json.dumps(c), flush=True)
+    if kernel_launches != 2 * n_attn or plain_launches:
+        fail(f"train: step 0 launched flash_attention {kernel_launches} "
+             f"times through the kernel (want {2 * n_attn}: forward and "
+             f"recompute) and {plain_launches} on the plain version")
+    bad = [c["leaf"] for c in leaves if not (c["nonzero"] and c["finite"])]
+    if bad:
+        fail(f"train: gradients zero or not finite at step 0: {bad}")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"train: kernel and plain losses {loss_rel:.3e} apart "
+             f"(bound {TRAIN_LOSS_RTOL})")
+    low = [c["leaf"] for c in leaves if not c["cosine"] >= TRAIN_GRAD_COS]
+    if low:
+        fail(f"train: gradient leaves below cosine {TRAIN_GRAD_COS} against "
+             f"the plain run: {low}")
+
+    opt = make_optimizer(cfg.optimizer, TRAIN_LR,
+                         moment_dtype=cfg.opt_state_dtype)
+    state = init_train_state(cfg, params, opt)
+    step_fn = make_train_step(cfg, opt)
+    steps, launches = [], {"flash_attention": 0}
+    for i in range(TRAIN_STEPS):
+        batch = _train_batch(cfg, i, seed)
+        traced = profile and i == TRAIN_STEPS - 1
+        if traced:     # the same step, its backward and update timed
+            timed_opt = _TimedOptimizer(opt)
+            step_fn = make_train_step(cfg, timed_opt)
+            bwd = _Timed(fa.flash_attention_gqa_bwd)
+        reset_counts()
+        with _trace(traced) as prof, \
+                (mock.patch.object(fa, "flash_attention_gqa_bwd", bwd)
+                 if traced else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n = read_counts()["flash_attention"]
+        launches["flash_attention"] += n
+        row = {"step": i, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
+               "flash_attention_launches": n}
+        if traced:
+            row["profile"] = _train_profile(prof, wall, bwd, timed_opt)
+        print("train_step " + json.dumps(row), flush=True)
+        steps.append(row)
+        if not (math.isfinite(row["loss"])
+                and math.isfinite(row["grad_norm"])):
+            fail(f"train: step {i} loss or grad_norm not finite: {row}")
+        if n != 2 * n_attn:
+            fail(f"train: step {i} launched flash_attention {n} times, "
+                 f"not {2 * n_attn}")
+    steady = [s["wall_s"] for s in steps[1:]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "steps": TRAIN_STEPS, "lr": TRAIN_LR, "remat": cfg.remat,
+             "optimizer": type(opt).__name__,
+             "moment_dtype": opt.moment_dtype,
+             "step0_s": steps[0]["wall_s"],
+             "step_s_mean_after_first": sum(steady) / len(steady),
+             "tokens_per_s": tokens * len(steady) / sum(steady),
+             "weight_bytes": weight_bytes,
+             "peak_allocated": torch.cuda.max_memory_allocated(),
+             "losses": [s["loss"] for s in steps]}
+    print("train_stats " + json.dumps(stats), flush=True)
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_gc_phase(seed: int) -> dict:
+    """qwen3-4b at full width cut to TRAIN_GC_LAYERS layers (a printed
+    cut) trained TRAIN_STEPS steps with GradCompressor(TRAIN_GC_BR) and
+    AdamW: 2 B10 launches a layer a step, the losses and every residual
+    finite; then one more step's gradients: none cut (every leaf nonzero),
+    and one leaf's round trip from its residual within 1.01 b_r of its
+    input wherever its code is nonzero.  Returns the steps' launches."""
+    import torch
+    from repro_torch.optim import GradCompressor, make_optimizer
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.step import (init_train_state, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    torch.cuda.empty_cache()
+    cfg, params, _ = _init_model("train_gc", TRAIN_ARCH, seed,
+                                 layers=TRAIN_GC_LAYERS)
+    gc = GradCompressor(TRAIN_GC_BR)
+    opt = make_optimizer(cfg.optimizer, TRAIN_LR,
+                         moment_dtype=cfg.opt_state_dtype)
+    state = init_train_state(cfg, params, opt, gc)
+    step_fn = make_train_step(cfg, opt, gc)
+    launches, losses = {"flash_attention": 0}, []
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        params, state, metrics = step_fn(params, state,
+                                         _train_batch(cfg, i, seed))
+        n = read_counts()["flash_attention"]
+        launches["flash_attention"] += n
+        losses.append(float(metrics["loss"]))
+        if n != 2 * cfg.n_layers:
+            fail(f"train_gc: step {i} launched flash_attention {n} times, "
+                 f"not {2 * cfg.n_layers}")
+    err = flatten(state["gc_err"])
+    finite = all(bool(torch.isfinite(e).all()) for e in err.values())
+    _, grads = value_and_grad(make_loss_fn(cfg), params,
+                              _train_batch(cfg, TRAIN_STEPS, seed))
+    grads = flatten(grads)
+    cut = [k for k, g in grads.items() if not bool(g.any())]
+    # the f32 dequantized value is g32 - the new residual (what the
+    # gradient's dtype then rounds is bf16's, as in repro)
+    key = "units/0/attn/wq"
+    g32 = grads[key].float() + err[key]
+    q, e = gc.roundtrip({"w": grads[key].clone()},
+                        {"w": err[key].clone()})
+    live = q["w"] != 0
+    rel = float((e["w"].abs() / g32.abs())[live].max())
+    res = {"losses": losses, "residuals_finite": finite,
+           "cut_leaves": cut, "leaf": key, "max_rel_err": rel,
+           "bound": 1.01 * TRAIN_GC_BR, "nonzero_codes": int(live.sum()),
+           "elements": live.numel(), "bytes_ratio": gc.bytes_ratio}
+    print("train_gc_check " + json.dumps(res), flush=True)
+    if not (finite and all(math.isfinite(x) for x in losses)):
+        fail("train_gc: a loss or a residual is not finite")
+    if cut:
+        fail(f"train_gc: gradients cut (all zero): {cut}")
+    if not rel <= 1.01 * TRAIN_GC_BR:
+        fail(f"train_gc: the round trip of {key} is {rel:.3e} from its "
+             f"input (bound {1.01 * TRAIN_GC_BR})")
+    del params, state, grads
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_runtime_phase() -> dict:
+    """Reduced qwen3-4b on cuda:0 through TrainRuntime, checkpointing every
+    step into a temporary directory: a run with fail_at_step 2 (restarted
+    from its last checkpoint) against an uninterrupted run from the same
+    initial state, parameters and optimizer state bit for bit; then
+    ``python -m repro_torch.launch.train --arch qwen3-4b --steps 3`` as a
+    subprocess, its [train] line printed.  Returns the two runs'
+    launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.data import SyntheticTokens
+    from repro_torch.train.runtime import RuntimeConfig, TrainRuntime
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    dev = torch.device("cuda", 0)
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    runs = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fail_at in (("restarted", RUNTIME_FAIL_AT),
+                               ("uninterrupted", None)):
+            params = T.init_params(cfg, 0, dtype=torch.float32, device=dev)
+            opt = AdamW(lr=3e-3)
+            state = init_train_state(cfg, params, opt)
+            rt = TrainRuntime(
+                cfg=RuntimeConfig(ckpt_dir=os.path.join(tmp, label),
+                                  ckpt_every=1, fail_at_step=fail_at),
+                train_step=make_train_step(cfg, opt), data_source=src,
+                device=dev)
+            runs[label] = rt.run(params, state, n_steps=RUNTIME_STEPS)
+        launches = read_counts()
+        a, b = (flatten(runs[k][:2]) for k in ("restarted",
+                                               "uninterrupted"))
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        hist = runs["restarted"][2]
+        res = {"steps": RUNTIME_STEPS, "fail_at_step": RUNTIME_FAIL_AT,
+               "restarts": max(m["restarts"] for m in hist),
+               "leaves": len(b), "differ": differ,
+               "losses": [m["loss"] for m in hist],
+               "flash_attention_launches": launches["flash_attention"]}
+        print("train_runtime_check " + json.dumps(res), flush=True)
+        if res["restarts"] != 1 or differ:
+            fail(f"train_runtime: the restarted run ({res['restarts']} "
+                 f"restarts) differs from the uninterrupted one at {differ}")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--steps", "3", "--ckpt-dir",
+             os.path.join(tmp, "launch")],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(f"[train] {TRAIN_ARCH} mesh=1x1: loss ")]
+    print("train_cli_check " + json.dumps({
+        "rc": out.returncode, "wall_s": time.perf_counter() - t0,
+        "lines": out.stdout.splitlines()[-4:]}), flush=True)
+    if out.returncode != 0 or not lines:
+        fail(f"launch.train exited {out.returncode} without its [train] "
+             f"line: {out.stderr.strip()[-2000:]}")
+    return launches
+
+
 # -- phase 14: the report -----------------------------------------------------
 
 GATE_CU = "src/repro_torch/csrc/gate_apply.cu"
@@ -3113,13 +3623,13 @@ KERNELS = {
     "unpack_bitmap_tiles": (PACK_CU, "src/repro/kernels/pack.py:132", "ops",
                             {}),
     # their launches: every serve phase's (the prefills and the captured
-    # steps), summed
+    # steps) and every train phase's (forward and remat recompute), summed
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
-                        "src/repro/kernels/flash_attention.py:90", "serving",
+                        "src/repro/kernels/flash_attention.py:90", "models",
                         {"dtype": "bfloat16"}),
     "kv_dequant_decode_attention": (
         "src/repro_torch/csrc/attention.cu",
-        "src/repro/kernels/kv_dequant_attention.py:98", "serving",
+        "src/repro/kernels/kv_dequant_attention.py:98", "models",
         {"q_dtype": "bfloat16"}),
 }
 
@@ -3239,8 +3749,13 @@ def main() -> int:
     launches["serve_whisper"] = timed("serve_whisper", serve_phase(
         "serve_whisper", WHISPER_ARCH, WHISPER_STEPS, args.seed,
         args.profile, eager_too=True))
-    launches["serving"] = {
-        k: sum(launches[p][k] for p in launches if p.startswith("serve"))
+    launches["train"] = timed("train", train_phase(args.seed, args.profile))
+    launches["train_gc"] = timed("train_gc", train_gc_phase(args.seed))
+    launches["train_runtime"] = timed("train_runtime",
+                                      train_runtime_phase())
+    launches["models"] = {
+        k: sum(launches[p].get(k, 0) for p in launches
+               if p.startswith(("serve", "train")))
         for k in ("flash_attention", "kv_dequant_decode_attention")}
     print(json.dumps({"kernels": kernel_report(checks, launches)}),
           flush=True)

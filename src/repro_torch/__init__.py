@@ -38,14 +38,17 @@ codec ``codec_backend="device"``, and both stage computes: the scheduled
 wave path (default) and the per-gate path (``gate_schedule=False``), as
 does the ``per_gate=True`` baseline; batched runs and noise trajectories
 run on the scheduled path.  The command lines are ``python -m
-repro_torch.launch.qsim`` and ``python -m repro_torch.launch.serve``.
+repro_torch.launch.qsim``, ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``.
 Several devices run too (``EngineConfig(devices=[...])`` or
 ``mesh_shape=D``): a batch lane-sharded, a single state block-sharded
 with its exchange ledger.  The LM serving path
 (``repro_torch.models.transformer``, ``repro_torch.serving``, reached by
 module path) runs the decoder-only models on the compressed KV cache:
 attention layers, full and sliding-window, with dense or MoE
-feed-forwards, and the recurrent RG-LRU, mLSTM and sLSTM layers.
+feed-forwards, and the recurrent RG-LRU, mLSTM and sLSTM layers; the
+training path (``repro_torch.train``, ``repro_torch.optim``) trains them
+on one device, with checkpoints and restarts.
 
 Quickstart::
 

@@ -10,7 +10,7 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "full_f32_products"]
+__all__ = ["resolve_device", "full_f32_products", "tf32_products"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,6 +47,28 @@ def full_f32_products(device):
     and one of ours may see the caller's flags if that thread sets them
     meanwhile (ROADMAP queue C).
     """
+    with _f32_matmul(device, tf32=False):
+        yield
+
+
+@contextlib.contextmanager
+def tf32_products(device):
+    """Run the f32 matrix products inside on the TF32 tensor cores on
+    ``device``, for operands that TF32 holds: bf16 values carried in f32
+    (8 bits of mantissa within TF32's 11), whose products are then exact
+    with f32 sums, as a bf16 product with f32 sums; or an f32 operand
+    split into a TF32 head and its remainder (split TF32, which counts as
+    f32: the remainder's own rounding is 2^-11 of 2^-11).  The caller's flags come back on exit, as with
+    :func:`full_f32_products`; elsewhere it does nothing."""
+    with _f32_matmul(device, tf32=True):
+        yield
+
+
+@contextlib.contextmanager
+def _f32_matmul(device, tf32: bool):
+    """``allow_tf32`` (and ``fp32_precision``, "tf32" or "ieee", where
+    this torch has it) set to ``tf32`` on CUDA inside, the caller's values
+    restored on exit."""
     if torch.device(device).type != "cuda":
         yield
         return
@@ -57,9 +79,9 @@ def full_f32_products(device):
         allow = m.allow_tf32
     except RuntimeError:    # the caller mixed the legacy and new APIs
         allow = None
-    m.allow_tf32 = False
+    m.allow_tf32 = tf32
     if new_api:
-        m.fp32_precision = "ieee"
+        m.fp32_precision = "tf32" if tf32 else "ieee"
     try:
         yield
     finally:

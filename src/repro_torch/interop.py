@@ -23,7 +23,7 @@ from .core.circuit import Circuit, Gate, Parameter
 from .core.devices import resolve_device
 
 __all__ = ["circuit_from_gates", "to_device", "lm_params_from_numpy",
-           "lm_cache_from_numpy"]
+           "lm_cache_from_numpy", "train_state_from_numpy"]
 
 
 def _param(p):
@@ -105,4 +105,14 @@ def lm_cache_from_numpy(tree, device=None):
     "xv"}``; recurrent states, f32 but for the RG-LRU's conv taps in the
     model's dtype), its leaves already numpy arrays, as the port's tree of
     writable tensors on ``device`` (default ``cuda:0``), dtypes kept."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def train_state_from_numpy(tree, device=None):
+    """The JAX package's train state (``repro.train.step.init_train_state``
+    or a stepped one: ``{"opt": {"m", "v", "step"} or {"f", "step"},
+    "gc_err": ...}``), its leaves already numpy arrays, as the port's tree
+    of writable tensors on ``device`` (default ``cuda:0``): moments in
+    their dtype (bf16 bit for bit), Adafactor's f32 factors, the f32
+    residuals, and ``step`` a 0-d int32 tensor."""
     return _tree_from_numpy(tree, resolve_device(device))

@@ -6,6 +6,11 @@ Encoder layers are non-causal self-attention + GeLU MLP; decoder layers
 are causal self-attention + cross-attention to the encoder output + GeLU
 MLP (RoPE in place of whisper's learned positions, as in ``repro``).
 
+``loss_fn_encdec`` is the decoder's next-token cross-entropy, as
+``repro``'s; with ``cfg.remat`` and grad enabled each encoder and decoder
+layer is checkpointed (``transformer.remat``), as ``repro`` wraps both
+bodies in ``jax.checkpoint``.
+
 Every attention core of prefill is the flash-attention kernel (B10): the
 encoder's over S = T frames unmasked, the decoder's causal, and the
 cross-attention's over the T encoder frames (T != S).  Decode stays plain
@@ -83,15 +88,19 @@ def init_encdec_params(cfg: ModelConfig, gen=0, dtype=torch.bfloat16,
 
 def _encode(cfg: ModelConfig, params, frames):
     positions = torch.arange(frames.shape[1], device=frames.device)
-    x = frames
-    for li in range(cfg.encoder.n_layers):
-        prm = T._index(params["enc"], li)
+
+    def layer(x, prm):
         h = rms_norm(x, prm["ln1"], cfg.norm_eps)
         mix, _ = A.attention_full(h, prm["attn"], cfg, positions,
                                   causal=False)
         x = x + mix
         h = rms_norm(x, prm["ln2"], cfg.norm_eps)
-        x = x + mlp(h, prm["mlp"], cfg.act)
+        return x + mlp(h, prm["mlp"], cfg.act)
+
+    body = T.remat(cfg, layer)
+    x = frames
+    for prm in T.unstack(params["enc"], cfg.encoder.n_layers):
+        x = body(x, prm)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -128,27 +137,35 @@ def _logits(cfg: ModelConfig, params, x):
 
 
 def _decoder(cfg: ModelConfig, params, frames, tokens, cache):
+    """The decoder's output over ``tokens``; with no ``cache`` (training)
+    each layer is checkpointed under ``cfg.remat``, as ``repro``'s
+    decoder body and encoder body are."""
     enc_out = _encode(cfg, params, frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
+    if cache is None:
+        body = T.remat(cfg, lambda x, prm: _dec_layer_full(
+            cfg, x, prm, positions, enc_out, None))
+        for prm in T.unstack(params["dec"], cfg.n_layers):
+            x = body(x, prm)
+        return x
     for li in range(cfg.n_layers):
         x = _dec_layer_full(cfg, x, T._index(params["dec"], li), positions,
-                            enc_out, None if cache is None
-                            else T._index(cache, li))
+                            enc_out, T._index(cache, li))
     return x
 
 
 def encdec_train(cfg: ModelConfig, params, frames, tokens):
-    """frames (B, T_enc, d), tokens (B, S_dec) -> logits (B, S_dec, V) f32
-    (forward only)."""
+    """frames (B, T_enc, d), tokens (B, S_dec) -> logits (B, S_dec, V)
+    f32; encoder and decoder layers checkpointed under ``cfg.remat``."""
     return _logits(cfg, params, _decoder(cfg, params, frames, tokens, None))
 
 
 def loss_fn_encdec(cfg: ModelConfig, params, frames, tokens):
-    """Training's loss: not ported yet."""
-    raise NotImplementedError(
-        "loss_fn_encdec belongs to training, which is not ported yet "
-        "(ROADMAP A12f)")
+    """Next-token cross-entropy of the decoder (mean over B*(S_dec-1)
+    targets)."""
+    return T.next_token_nll(encdec_train(cfg, params, frames, tokens),
+                            tokens)
 
 
 def encdec_prefill(cfg: ModelConfig, params, frames, tokens,

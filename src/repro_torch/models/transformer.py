@@ -9,11 +9,18 @@ The port of ``repro/models/transformer.py``, every layer kind:
   rglru               RecurrentGemma temporal mixing (``models/recurrent.py``)
   mlstm / slstm       xLSTM blocks (``models/xlstm.py``)
 
-Three modes:
+Three modes, and the training loss:
 
-  forward_train   tokens -> logits                     (forward only)
+  forward_train   tokens -> logits                     (no caches)
   forward_prefill tokens -> logits_last + caches       (serve prefill)
   forward_decode  1 token + caches -> logits + caches  (serve step)
+  loss_fn         tokens -> next-token cross-entropy   (training)
+
+With ``cfg.remat`` and grad enabled, ``forward_train`` checkpoints each
+pattern unit (``torch.utils.checkpoint``, non-reentrant), as ``repro``
+wraps its unit body in ``jax.checkpoint``: the backward recomputes a
+unit's activations, and the flash-attention kernel (B10) runs again in
+that recompute.
 
 Parameters and caches keep the JAX package's pytree layout — ``{"units":
 (...), "rem": (...)}``, each unit leaf stacked over the pattern units, an
@@ -33,12 +40,12 @@ no layer reads it on the host: the step is one CUDA graph when captured
 with pos traced.
 
 Encoder-decoder models (whisper) run through ``models/encdec.py``; this
-module refuses them.  Not ported yet (``NotImplementedError``):
-``loss_fn`` (training, A12f).
+module refuses them.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.devices import resolve_device
 from . import attention as A
@@ -50,8 +57,9 @@ from .mlp import init_mlp_params, mlp
 from .moe import init_moe_params, moe_layer
 
 __all__ = ["init_params", "forward_train", "forward_prefill",
-           "forward_decode", "init_decode_cache", "decode_pos",
-           "check_decode_pos", "state_leaves"]
+           "forward_decode", "init_decode_cache", "loss_fn", "decode_pos",
+           "check_decode_pos", "state_leaves", "next_token_nll", "remat",
+           "unstack"]
 
 #: self-attention kinds: a cache of sequence positions, indexed by pos
 ATTN_KINDS = ("attn", "attn_local")
@@ -93,6 +101,20 @@ def _index(tree, u: int):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_index(v, u) for v in tree)
     return tree[u]
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` units of a stacked tree, as views, from one ``unbind`` of
+    each leaf.  Under autograd the units' gradients then come back to a
+    leaf in one stack, where indexing it once a unit would add a zero-padded
+    full-size gradient for every unit."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [type(tree)(p[u] for p in parts) for u in range(n)]
+    return list(tree.unbind(0))
 
 
 # ===========================================================================
@@ -280,16 +302,54 @@ def _logits(cfg: ModelConfig, params, x):
     return logits
 
 
+def remat(cfg: ModelConfig, body):
+    """``body`` checkpointed when ``cfg.remat`` asks for it and grad is
+    enabled (non-reentrant: its activations are recomputed in the
+    backward; the layers draw no random numbers, so no RNG state is
+    kept), else ``body`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+
+    def wrapped(*args):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return wrapped
+
+
 def forward_train(cfg: ModelConfig, params, tokens, aux=None):
-    """tokens (B, S) -> logits (B, S, V) f32 (forward only); ``aux`` the
-    image embeddings (B, n_image_tokens, d_model) a cross-attention layer
-    reads."""
+    """tokens (B, S) -> logits (B, S, V) f32; ``aux`` the image embeddings
+    (B, n_image_tokens, d_model) a cross-attention layer reads.  Each
+    pattern unit is checkpointed under ``cfg.remat`` (:func:`remat`), the
+    remainder layers not, as in ``repro``."""
     check_supported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(cfg, params, tokens)
-    for kind, prm, _ in _layers(cfg, params, None):
-        x = _apply_layer_full(cfg, kind, x, prm, positions, aux, None)
+
+    def unit(x, unit_params):
+        for kind, prm in zip(cfg.pattern, unit_params):
+            x = _apply_layer_full(cfg, kind, x, prm, positions, aux, None)
+        return x
+
+    body = remat(cfg, unit)
+    for unit_params in unstack(params["units"], cfg.n_units):
+        x = body(x, unit_params)
+    for i, prm in enumerate(params["rem"]):
+        x = _apply_layer_full(cfg, cfg.pattern[i], x, prm, positions, aux,
+                              None)
     return _logits(cfg, params, x)
+
+
+def next_token_nll(logits, tokens):
+    """Mean next-token cross-entropy over the B·(S-1) targets of
+    ``tokens`` (B, S), from f32 ``logits`` (B, S, V)."""
+    lp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, aux=None):
+    """Next-token cross-entropy (mean over B*(S-1) targets)."""
+    return next_token_nll(forward_train(cfg, params, tokens, aux), tokens)
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, aux=None,

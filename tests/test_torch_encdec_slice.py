@@ -339,12 +339,10 @@ def test_vlm_tree_matches_repro_cut_to_ten_layers(J):
 
 def test_encdec_refuses_what_repro_lacks():
     """No compressed encoder-decoder step (repro decodes whisper on raw
-    caches), no training loss yet (A12f), pos within the decoder's cache."""
+    caches), pos within the decoder's cache."""
     cfg = reduced_config(get_config(AUDIO))
     with pytest.raises(ValueError, match="raw caches"):
         KV.make_compressed_decode_step(cfg)
-    with pytest.raises(NotImplementedError, match="A12f"):
-        E.loss_fn_encdec(cfg, {}, None, None)
     cache = E.init_encdec_cache(cfg, B, MAX_LEN, 16, device=CPU)
     assert (tuple(cache["k"].shape), tuple(cache["xk"].shape)) == \
         ((2, B, MAX_LEN, 2, 16), (2, B, 16, 2, 16))

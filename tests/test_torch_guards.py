@@ -109,12 +109,26 @@ def test_missing_gpu_raises_unless_the_cpu_was_asked_for(monkeypatch):
     assert abs(abs(state[0]) ** 2 - 0.5) < 1e-3
 
 
-def _model_entry_points():
-    """The model builders exported by name, each as fn(device=...)."""
+def _model_entry_points(ckpt_dir):
+    """The model builders exported by name, each as fn(device=...), and
+    the training entry points that put tensors on a device: the
+    launcher's set-up (its ``--device``) and a checkpoint's restore."""
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import attention, layers, mlp
+    from repro_torch.train.checkpoint import CheckpointManager
     cfg = reduced_config(get_config("qwen3-4b"))
+    mgr = CheckpointManager(str(ckpt_dir))
+    mgr.save(0, {"w": torch.ones(3)})
+
+    def launch(device=None):
+        argv = ["--steps", "1"] + ([] if device is None
+                                   else ["--device", str(device)])
+        return launch_train.setup(argv)[1]["embed"]
     return {
+        "launch_train": launch,
+        "checkpoint_restore": lambda device=None: mgr.restore(
+            {"w": torch.zeros(3)}, device=device)[0]["w"],
         "init_cache": lambda device=None: attention.init_cache(
             cfg, 2, 16, 2, device=device)["k"],
         "init_attn_params": lambda device=None: attention.init_attn_params(
@@ -127,9 +141,11 @@ def _model_entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_cache", "init_attn_params",
-                                  "init_mlp_params", "dense_init"])
-def test_model_entry_points_default_to_the_card(monkeypatch, name):
-    fn = _model_entry_points()[name]
+                                  "init_mlp_params", "dense_init",
+                                  "launch_train", "checkpoint_restore"])
+def test_model_entry_points_default_to_the_card(monkeypatch, tmp_path,
+                                                name):
+    fn = _model_entry_points(tmp_path)[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
