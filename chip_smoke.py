@@ -256,17 +256,20 @@ Phases, in order (any failure exits non-zero and prints no result):
                   --seed) trained on cuda:0 through
                   repro_torch.train.step: step 0's loss and gradients
                   through B10 (72 launches: 36 in the forward, 36 in the
-                  remat recompute) and again with its plain version
-                  patched in (0 launches): loss within 1e-2, each
-                  gradient leaf at cosine >= 0.99 (max|Δ|/max|g| printed
-                  per leaf), every leaf's gradient nonzero and finite;
+                  remat recompute; the torch backward
+                  flash_attention_gqa_bwd) and again with its plain
+                  version patched in (0 launches; autograd through it):
+                  loss within 1e-3, each gradient leaf at cosine >= 0.999
+                  and max|Δ|/max|g| <= 0.1 (printed per leaf), every
+                  leaf's gradient nonzero and finite;
                   then 4 steps of make_train_step (the config's AdamW,
                   f32 moments, lr 3e-4, remat on; B 2 x S 2,048 tokens of
                   SyntheticTokens(--seed)), 72 B10 launches and a finite
                   loss each; prints each step's loss, grad_norm and wall
                   time, tokens/s and peak memory (with --profile the
                   last step's device time: GEMMs, B10, the attention
-                  backward, the optimizer).
+                  backward, the optimizer; that step is left out of the
+                  mean step time and tokens/s).
 23. train_gc    — qwen3-4b at full width cut to 4 of 36 layers (printed)
                   with GradCompressor(1e-2) for 4 steps: residuals and
                   losses finite, no gradient cut, one leaf's round trip
@@ -401,11 +404,13 @@ CROSS_FLASH = [(SERVE_BATCH, SERVE_PROMPT, 576, 64, 8, 128, False),
                (SERVE_BATCH, WHISPER_PROMPT, 1500, 20, 20, 64, False)]
 #: training: qwen3-4b whole, B 2 x S 2,048 tokens of SyntheticTokens(seed)
 #: a step, TRAIN_STEPS steps of the config's AdamW (f32 moments) at lr
-#: TRAIN_LR with remat; step 0 against the plain version's run: the loss
-#: within TRAIN_LOSS_RTOL, each gradient leaf at cosine >= TRAIN_GRAD_COS
+#: TRAIN_LR with remat; step 0 (B10 and its torch backward) against
+#: autograd through the plain version: the loss within TRAIN_LOSS_RTOL,
+#: each gradient leaf at cosine >= TRAIN_GRAD_COS and max|Δg|/max|g| <=
+#: TRAIN_GRAD_RTOL (measured on one H100: 9.7e-5, 1 - 5e-5, 0.040)
 TRAIN_ARCH = "qwen3-4b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 2048, 4, 3e-4
-TRAIN_LOSS_RTOL, TRAIN_GRAD_COS = 1e-2, 0.99
+TRAIN_LOSS_RTOL, TRAIN_GRAD_COS, TRAIN_GRAD_RTOL = 1e-3, 0.999, 0.1
 #: train_gc: qwen3-4b cut to 4 layers, GradCompressor(1e-2)
 TRAIN_GC_LAYERS, TRAIN_GC_BR = 4, 1e-2
 #: train_runtime: reduced qwen3-4b, a failure at step 2 of 5
@@ -3328,16 +3333,19 @@ def train_phase(seed: int, profile: bool) -> dict:
     """qwen3-4b whole (36 layers, full width, 4.02 B bf16 weights from
     ``seed``) trained on cuda:0: step 0's loss and gradients twice,
     through B10 (exactly 2 launches a layer: the forward and the remat
-    recompute) and with its plain version patched in (0 launches): loss
-    within TRAIN_LOSS_RTOL, each gradient leaf at cosine >= TRAIN_GRAD_COS
-    (max|Δ|/max|g| printed), every leaf's gradient nonzero and finite;
+    recompute; its backward flash_attention_gqa_bwd) and with its plain
+    version patched in (0 launches; autograd through it): loss within
+    TRAIN_LOSS_RTOL, each gradient leaf at cosine >= TRAIN_GRAD_COS and
+    max|Δ|/max|g| <= TRAIN_GRAD_RTOL, every leaf's gradient nonzero and
+    finite;
     then TRAIN_STEPS steps of make_train_step (the config's AdamW, f32
     moments, lr TRAIN_LR, remat on), B 2 x S 2,048 tokens of
     SyntheticTokens(seed) a step, each step's loss finite and 72 B10
     launches.  Prints each step's loss, grad_norm and wall time, tokens/s
     and peak memory (with ``profile`` the last step's device time by
-    part: the kernels by name, and the spans of the attention backward's
-    calls and of the optimizer update).  Returns the launches of the
+    part: the kernels by name, and CUDA-event times of the attention
+    backward's calls and of the optimizer update; that step is left out
+    of the steady-state mean and tokens/s).  Returns the launches of the
     steps."""
     from unittest import mock
 
@@ -3381,6 +3389,7 @@ def train_phase(seed: int, profile: bool) -> dict:
              "min_cosine": min(c["cosine"] for c in leaves),
              "cosine_bound": TRAIN_GRAD_COS,
              "max_grad_rel_err": max(c["max_rel_err"] for c in leaves),
+             "grad_rel_bound": TRAIN_GRAD_RTOL,
              "kernel_launches": kernel_launches,
              "plain_launches": plain_launches,
              "kernel_s": t_kernel, "plain_s": t_plain}
@@ -3401,6 +3410,11 @@ def train_phase(seed: int, profile: bool) -> dict:
     if low:
         fail(f"train: gradient leaves below cosine {TRAIN_GRAD_COS} against "
              f"the plain run: {low}")
+    far = [c["leaf"] for c in leaves
+           if not c["max_rel_err"] <= TRAIN_GRAD_RTOL]
+    if far:
+        fail(f"train: gradient leaves past max|dg|/max|g| {TRAIN_GRAD_RTOL} "
+             f"against the plain run: {far}")
 
     opt = make_optimizer(cfg.optimizer, TRAIN_LR,
                          moment_dtype=cfg.opt_state_dtype)
@@ -3427,7 +3441,7 @@ def train_phase(seed: int, profile: bool) -> dict:
         launches["flash_attention"] += n
         row = {"step": i, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
-               "flash_attention_launches": n}
+               "flash_attention_launches": n, "traced": traced}
         if traced:
             row["profile"] = _train_profile(prof, wall, bwd, timed_opt)
         print("train_step " + json.dumps(row), flush=True)
@@ -3438,7 +3452,7 @@ def train_phase(seed: int, profile: bool) -> dict:
         if n != 2 * n_attn:
             fail(f"train: step {i} launched flash_attention {n} times, "
                  f"not {2 * n_attn}")
-    steady = [s["wall_s"] for s in steps[1:]]
+    steady = [s["wall_s"] for s in steps[1:] if not s["traced"]]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     stats = {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
              "steps": TRAIN_STEPS, "lr": TRAIN_LR, "remat": cfg.remat,

@@ -27,12 +27,13 @@ strides, with no copy of q, k or v; on a CPU tensor they run the plain
 versions in :mod:`.ref`.  Any other device raises — there is no
 fallback from the kernel.  :data:`launch_counts` counts CUDA launches.
 
-Under autograd (grad enabled and q, k or v requiring grad) both go through
-:class:`FlashAttentionFn`, whose forward is the same launch (or, on the
-CPU, the same plain version) and whose backward is
-:func:`flash_attention_gqa_bwd`.  The launch writes a fresh tensor with no
-``grad_fn``, so without the Function the graph would end at the attention
-output and the projections before it would get no gradient.  The TPU
+Both go through :class:`FlashAttentionFn`, whose forward is the launch
+(on the CPU, the plain version) and whose backward is
+:func:`flash_attention_gqa_bwd`; with grad off, or no operand requiring
+it, its output has no ``grad_fn`` and nothing is kept for a backward.
+The launch writes a fresh tensor with no ``grad_fn``, so without the
+Function the graph would end at the attention output and the projections
+before it would get no gradient.  The TPU
 kernel has no backward (``repro`` differentiates its plain XLA attention,
 ``repro/models/attention.py:80-113``), so the backward is torch: it
 recomputes the probabilities a block of queries at a time and holds no
@@ -47,7 +48,7 @@ import torch
 from ..core.devices import full_f32_products, tf32_products
 from . import build
 from .codec import _cuda_device
-from .ref import NEG_INF, flash_attention_gqa_ref, flash_attention_ref
+from .ref import NEG_INF, flash_attention_gqa_ref
 
 __all__ = ["flash_attention", "flash_attention_gqa", "FlashAttentionFn",
            "flash_attention_gqa_bwd", "HEAD_DIMS", "launch_counts",
@@ -128,13 +129,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, {tuple(v.shape)} are not three "
                          "equal (BH, S, hd)")
     dev = _cuda_device((q, k, v), "flash_attention")
-    if _wants_grad(q, k, v):
-        return FlashAttentionFn.apply(q.unsqueeze(2), k.unsqueeze(2),
-                                      v.unsqueeze(2), causal, 0, dev)[:, :, 0]
-    if dev is None:
-        return flash_attention_ref(q, k, v, causal).to(q.dtype)
-    return _launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal,
-                   0, dev)[:, :, 0]
+    return FlashAttentionFn.apply(q.unsqueeze(2), k.unsqueeze(2),
+                                  v.unsqueeze(2), causal, 0, dev)[:, :, 0]
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,15 +156,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k.shape[1]} keys: causal and window masks need "
                          "as many keys as queries")
     dev = _cuda_device((q, k, v), "flash_attention_gqa")
-    if _wants_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, causal, window, dev)
-    if dev is None:
-        return flash_attention_gqa_ref(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window, dev)
-
-
-def _wants_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return FlashAttentionFn.apply(q, k, v, causal, window, dev)
 
 
 class FlashAttentionFn(torch.autograd.Function):

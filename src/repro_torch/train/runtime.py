@@ -17,8 +17,13 @@ The port of ``repro/train/runtime.py``:
   exercise the restart path.
 
 The step function updates parameters and state in place and returns
-them; a restart replaces both with the checkpoint's.  A batch's tokens go
-to ``device`` as an int64 tensor unless ``batch_to_device`` is given.
+them; a restart replaces both with the checkpoint's.  ``repro``'s step is
+functional, so it can also replay from the initial state when nothing has
+been saved; here a step that failed after it began may have written part
+of its update, so a failure with no checkpoint restarts from the initial
+state only when the step function had not been entered, and raises
+otherwise.  A batch's tokens go to ``device`` as an int64 tensor unless
+``batch_to_device`` is given.
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ class TrainRuntime:
         metrics_hist = []
         step_times: list[float] = []
         stragglers = 0
+        entered = False     # whether a step may have written params/state
         while step < n_steps:
             try:
                 t0 = time.perf_counter()
@@ -79,6 +85,7 @@ class TrainRuntime:
                     self._failed_once = True
                     raise RuntimeError(f"injected node failure @step {step}")
                 batch = to_device({"tokens": self.data_source.batch(step)})
+                entered = True
                 params, state, metrics = self.train_step(params, state, batch)
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
@@ -102,7 +109,13 @@ class TrainRuntime:
                         f"exceeded max_restarts={self.cfg.max_restarts}"
                     ) from exc
                 if mgr.latest_step() is None:
-                    # nothing saved yet: restart from the initial state
+                    if entered:
+                        raise RuntimeError(
+                            f"step {step} failed after it began to update "
+                            "the parameters in place, and no checkpoint "
+                            "exists to replay from") from exc
+                    # nothing saved and nothing written: replay from the
+                    # initial state
                     step = 0
                     continue
                 (params, state), last = mgr.restore((params, state),

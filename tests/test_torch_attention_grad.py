@@ -183,12 +183,14 @@ def test_tpu_signature_routes_through_the_function(fake_card):
 
 
 def test_no_grad_keeps_the_plain_launch(fake_card):
-    """Without grad the wrapper launches as before, outside the
-    Function."""
+    """Without grad, or with no operand requiring it, the Function
+    launches once and its output carries no graph."""
     q, k, v, _ = _operands((1, 16, 16, 4, 2, 16, True, 0), torch.float32)
+    out = fa.flash_attention_gqa(q, k, v)
+    assert out.grad_fn is None and len(fake_card) == 1
     with torch.no_grad():
         out = fa.flash_attention_gqa(q.requires_grad_(), k, v)
-    assert out.grad_fn is None and len(fake_card) == 1
+    assert out.grad_fn is None and len(fake_card) == 2
 
 
 def test_bf16_backward_splits_the_f32_operand():
