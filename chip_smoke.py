@@ -37,7 +37,11 @@ Phases, in order (any failure exits non-zero and prints no result):
                   K = 128 with U at lane stride 0, narrow, ragged and
                   unaligned shapes untimed; row l of a 16-lane call bit
                   for bit the one-lane call on row l at L = 1, 2, 3, 16)
-                  and the packing kernels (bit for bit).  gemm_planes_batch and
+                  and the packing kernels (bit for bit; pack_bitmap_tiles
+                  also on bool bits, timed on int32 and bool bits at 2^22
+                  beside its bytes bound on kernel_time lines, and at n
+                  a multiple of 32 and not of 128 through its C entry, and
+                  off the 16-byte boundary).  gemm_planes_batch and
                   gemm_planes at K <= 32 (the ring body) are held within
                   rtol 1e-5, atol 1e-6, also at every K in 2 ... 32 with
                   three lanes and B at lane stride 0, R*K past a ragged
@@ -108,6 +112,15 @@ Phases, in order (any failure exits non-zero and prints no result):
 5. main         — repro_torch.Simulator(build_circuit("qft", 26),
                   EngineConfig()).run() on cuda:0 (host codec, default
                   planning).
+   dryrun       — python -m repro_torch.launch.dryrun --all, started in the
+                  background after the build with no card visible to it
+                  (it works on meta tensors, on one host thread beside
+                  the kernel phases and main), joined after main: exit 0,
+                  the 40 cells, no applicable cell raising; one
+                  dryrun_cell line a cell (applicability or skip reason,
+                  each device's argument and output bytes, model_flops,
+                  counted_flops, the roofline terms from the H100's
+                  data-sheet rates).
 6. main_device  — the same for qft-28 less its first 70 gates (a depth
                   cut: 15 of qft-28's 32 stages, every op kind kept) with
                   EngineConfig(codec_backend="device") (--device-qubits
@@ -201,7 +214,11 @@ Phases, in order (any failure exits non-zero and prints no result):
                   cache >= 1.7x smaller than bf16.  Prints prefill s,
                   decode ms a step and tokens/s of both runs, the weights'
                   read time at 3.35 TB/s, peak device memory (and with
-                  --profile each run's device busy and idle share).
+                  --profile each run's device busy and idle share).  Then
+                  serve_seqattn on the same weights and prompts: the
+                  config with seq_parallel_attn=True, prefill (36 B10
+                  launches) and 32 captured compressed steps, every
+                  logits tensor bit for bit the captured run's.
 15. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
                   sliding-window ones of W 1,024 and 8 global, hd 256;
                   11.8 B bf16 weights drawn after qwen3-4b's are freed),
@@ -291,12 +308,15 @@ or without the repository around it, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1035,11 +1055,82 @@ def gate_phase() -> dict:
 
 # -- phase 2: the standalone packing kernels, bit for bit ---------------------
 
+#: B9a (pack_bitmap_tiles) beyond the main shape, untimed: (n, bits' dtype,
+#: elements off the allocation's 16-byte boundary).  n a multiple of 32 and
+#: not of 128 leaves a ragged last word row and a ragged last 1,024-element
+#: round (through the C entry: the wrapper takes whole 128-lane rows); an
+#: offset puts the bits off the 16-byte boundary (the kernel's unaligned
+#: chunk loads).
+BITMAP_EDGES = [(GROUP + 96, "int32", 0), (GROUP + 96, "bool", 0),
+                (32, "int32", 0), (1056, "bool", 0), (4224, "int32", 1),
+                (4256, "bool", 3), (GROUP, "bool", 5)]
+
+
+def bitmap_words(bits):
+    """B9a's plain version on n bits (n a multiple of 32): zeros to a whole
+    128-lane row, ref.pack_bitmap_tiles_ref, the first n / 32 words."""
+    import torch
+    from repro_torch.kernels import ref
+    n = bits.numel()
+    rows = bits.view(-1, 128) if n % 128 == 0 else torch.cat([
+        bits, bits.new_zeros(-n % 128)]).view(-1, 128)
+    return ref.pack_bitmap_tiles_ref(rows).view(-1)[:n // 32]
+
+
+def bitmap_call(bits):
+    """B9a on n bits: through the wrapper for whole 128-lane rows, else
+    through its C entry (which takes any multiple of 32)."""
+    import torch
+    from repro_torch.kernels import pack as pk
+    n = bits.numel()
+    if n % 128 == 0:
+        return pk.pack_bitmap_tiles(bits.view(-1, 128)).view(-1)
+    words = torch.empty(n // 32, dtype=torch.int32, device=bits.device)
+    pk._launch("pack_bitmap_tiles", bits.device, bits.data_ptr(),
+               bits.element_size(), words.data_ptr(), n)
+    return words
+
+
+def bitmap_case(n: int, dtype: str, seed: int, timed: bool,
+                offset: int = 0) -> dict:
+    """B9a on n bits of ``dtype`` (int32 in {-1, 0, 1}: nonzero values
+    other than 1 count as set; or bool), ``offset`` elements into their
+    allocation, against its plain version bit for bit; with ``timed``,
+    kernel and plain times beside the bytes bound (each bit read once,
+    each word written once; no library call packs bits) on a
+    ``kernel_time pack_bitmap_tiles`` line."""
+    import torch
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    raw = torch.randint(-1, 2, (n + offset,), generator=g, device="cuda:0",
+                        dtype=torch.int32)
+    bits = (raw if dtype == "int32" else raw != 0)[offset:]
+    got, want = bitmap_call(bits), bitmap_words(bits)
+    torch.cuda.synchronize()
+    c = {"name": "pack_bitmap_tiles", "dtype": dtype, "n": n,
+         "offset": offset, "aligned": bits.data_ptr() % 16 == 0,
+         "equal": bool(torch.equal(got, want)),
+         "max_abs_err": int((got.long() - want.long()).abs().max())}
+    if timed:
+        nbytes = n * bits.element_size() + n // 8
+        b, by = bound(nbytes, 0)
+        inputs = cold_copies((bits,), (0,))
+        c.update(ms=cuda_ms(bitmap_call, inputs),
+                 plain_ms=cuda_ms(bitmap_words, inputs), library_ms=None,
+                 bound_ms=b, bound_by=by, bytes=nbytes)
+        print("kernel_time pack_bitmap_tiles " + json.dumps(c), flush=True)
+    print("kernel_check packing " + json.dumps(c), flush=True)
+    if not c["equal"]:
+        fail(f"pack_bitmap_tiles differs from its plain version: "
+             f"{json.dumps(c)}")
+    return c
+
+
 def pack_case(rows: int, seed: int, timed: bool) -> list[dict]:
     """pack/unpack of codes and of sign bitmaps at ``rows`` x 128 against
     their plain versions, bit for bit; with ``timed``, kernel / plain
     times beside the bytes bound (no library call packs bits; one cast,
-    ``to(int16)`` viewed as int32 words, packs u16 codes)."""
+    ``to(int16)`` viewed as int32 words, packs u16 codes).  The sign
+    bitmap is packed from int32 bits (:func:`bitmap_case`)."""
     import torch
     from repro_torch.kernels import pack as pk
     from repro_torch.kernels import ref
@@ -1060,12 +1151,10 @@ def pack_case(rows: int, seed: int, timed: bool) -> list[dict]:
          codes, 4 * n + 2 * n, lib_pack),
         ("unpack_codes_tiles", pk.unpack_codes_tiles,
          ref.unpack_codes_tiles_ref, words, 2 * n + 4 * n, None),
-        ("pack_bitmap_tiles", pk.pack_bitmap_tiles,
-         ref.pack_bitmap_tiles_ref, bits, 4 * n + n // 8, None),
         ("unpack_bitmap_tiles", pk.unpack_bitmap_tiles,
          ref.unpack_bitmap_tiles_ref, signs, n // 8 + 4 * n, None),
     ]
-    out = []
+    out = [bitmap_case(n, "int32", seed, timed)]
     for name, kern, plain, x, nbytes, lib in cases:
         got, want = kern(x), plain(x)
         torch.cuda.synchronize()
@@ -1091,9 +1180,14 @@ def pack_case(rows: int, seed: int, timed: bool) -> list[dict]:
 
 
 def pack_phase() -> dict:
+    """The packing kernels at 2^22 elements (timed) and small rows; B9a
+    also on bool bits at 2^22 (timed) and at :data:`BITMAP_EDGES`."""
     cases = pack_case(GROUP // 128, seed=70, timed=True)
     for i, rows in enumerate((1, 8, 24, 33)):
         cases += pack_case(rows, seed=71 + i, timed=False)
+    cases.append(bitmap_case(GROUP, "bool", seed=76, timed=True))
+    cases += [bitmap_case(n, dt, seed=77 + i, timed=False, offset=off)
+              for i, (n, dt, off) in enumerate(BITMAP_EDGES)]
     by_name: dict[str, list] = {}
     for c in cases:
         by_name.setdefault(c["name"], []).append(c)
@@ -3042,8 +3136,50 @@ def _rel_errs(got, want) -> list[float]:
             for a, b in zip(got, want)]
 
 
+def seqattn_check(label: str, cfg, params, batch, prompt: int,
+                  max_len: int, steps: int, want_logits: list) -> dict:
+    """The serve phase's model with ``seq_parallel_attn=True`` on its
+    weights and prompts: prefill (one B10 launch an attention layer: the
+    same call as with False; repro's flag only adds sharding constraints),
+    compress, and ``steps`` greedy captured compressed decode steps from
+    the prefill's own argmax.  Every logits tensor (the prefill's last and
+    each step's) must equal ``want_logits``, the False run's, bit for bit.
+    Returns the run's launches (prefill and replays)."""
+    import torch
+    from repro_torch.models import transformer as T
+    scfg = cfg.with_(seq_parallel_attn=True)
+    n_attn = sum(k in T.ATTN_KINDS for k in scfg.layer_kinds())
+    t0 = time.perf_counter()
+    reset_counts()
+    logits0, qcache, _ = _prefill(scfg, params, batch, max_len, True)
+    prefill_launches = read_counts()
+    out, _, timing, launches = _decode(scfg, params, qcache,
+                                       logits0.argmax(-1)[:, None], prompt,
+                                       steps, True)
+    del qcache
+    got = [logits0] + out
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want_logits)]
+    launches = dict(launches)
+    launches["flash_attention"] += prefill_launches["flash_attention"]
+    res = {"arch": scfg.name, "seq_parallel_attn": True,
+           "bitwise_equal": equal, "steps": steps,
+           "prefill_launches": {k: v for k, v in prefill_launches.items()
+                                if v},
+           "decode_ms_per_step": timing["decode_ms_per_step"],
+           "wall_s": time.perf_counter() - t0}
+    print(f"{label}_seqattn_check " + json.dumps(res), flush=True)
+    if prefill_launches["flash_attention"] != n_attn:
+        fail(f"{label}: seq_parallel_attn prefill launched flash_attention "
+             f"{prefill_launches['flash_attention']} times, not {n_attn}")
+    if len(equal) != len(want_logits) or not all(equal):
+        fail(f"{label}: seq_parallel_attn=True logits differ from the "
+             f"False run's at {[i for i, e in enumerate(equal) if not e]}")
+    return launches
+
+
 def serve_phase(label: str, arch: str, steps: int, seed: int,
-                profile: bool, eager_too: bool, layers=None) -> dict:
+                profile: bool, eager_too: bool, layers=None,
+                seqattn: dict | None = None) -> dict:
     """``arch`` at full width (and depth, or ``layers`` of it; bf16
     weights drawn on cuda:0 from ``seed``): prefill 8 x 2,048 tokens
     (max_len 4,096; a VLM with its image embeddings; an encoder-decoder
@@ -3060,7 +3196,9 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     KV_RATIO_MIN smaller than bf16 (a model without attention says so).
     For an MoE model both prefills record every layer's expert choices and
     the share of (token, layer) expert sets that differ between them is
-    printed.  Prints the phase's peak device memory.  Returns the
+    printed.  With ``seqattn`` (a dict), :func:`seqattn_check` runs on the
+    same weights and prompts after the captured run and puts its launches
+    in ``seqattn``.  Prints the phase's peak device memory.  Returns the
     captured run's launches (prefill and replays)."""
     from unittest import mock
 
@@ -3106,6 +3244,10 @@ def serve_phase(label: str, arch: str, steps: int, seed: int,
     runs["captured"] = _decode(cfg, params, qcache, first, prompt, steps,
                                True, compressed, profile=profile)
     del qcache
+    if seqattn is not None:
+        seqattn.update(seqattn_check(label, cfg, params, batch, prompt,
+                                     max_len, steps,
+                                     [logits0] + runs["captured"][0]))
     stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     stats["weight_bytes"] = weight_bytes
     stats["weight_read_floor_ms"] = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -3603,6 +3745,91 @@ def train_runtime_phase() -> dict:
     return launches
 
 
+# -- the dry run (ROADMAP A12g): every cell on the host ------------------------
+
+DRYRUN_CELLS = 40                # 10 architectures x 4 shapes
+DRYRUN_WAIT_S = 600              # the most the phase waits for it
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_start(tmp: str) -> tuple:
+    """Start ``python -m repro_torch.launch.dryrun --all`` in the
+    background, with no card visible to it (CUDA_VISIBLE_DEVICES empty: it
+    works on meta tensors and touches no device) and one thread; it runs
+    beside the kernel phases and :func:`dryrun_phase` joins it.  It is
+    stopped at exit if still running."""
+    out = os.path.join(tmp, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(os.path.join(tmp, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", out], env=env, stdout=log, stderr=subprocess.STDOUT,
+        cwd=HERE)
+    atexit.register(_stop, proc)
+    return proc, out, log, time.perf_counter()
+
+
+def dryrun_phase(handle: tuple) -> dict:
+    """Join the dry run: exit 0, all 40 cells, no applicable cell raised;
+    one ``dryrun_cell`` line a cell with its applicability (or skip
+    reason), each device's argument and output bytes, model_flops, the
+    port's counted_flops and roofline terms (H100 data-sheet rates).
+    Returns the summary."""
+    proc, out, log, t0 = handle
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_WAIT_S -
+                                   (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        fail(f"the dry run did not end within {DRYRUN_WAIT_S} s")
+    log.close()
+    with open(log.name) as f:
+        text = f.read()
+    if rc != 0 or not os.path.exists(out):
+        fail(f"the dry run exited {rc}: {text[-3000:]}")
+    with open(out) as f:
+        recs = json.load(f)
+    errors = [r for r in recs if "error" in r]
+    for r in recs:
+        line = {"arch": r["arch"], "shape": r["shape"],
+                "applicable": "skipped" not in r and "error" not in r}
+        if "skipped" in r:
+            line["skipped"] = r["skipped"]
+        elif "error" in r:
+            line["error"] = r["error"]
+        else:
+            port = r["port"]
+            line.update(step_kind=r["step_kind"], mesh=r["mesh"],
+                        bytes_per_device=r["bytes_per_device"],
+                        model_flops=r["model_flops"],
+                        counted_flops=port["counted_flops"],
+                        compute_s=port["compute_s"],
+                        memory_s=port["memory_s"],
+                        collective_s=port["collective_s"],
+                        bottleneck=port["bottleneck"])
+        print("dryrun_cell " + json.dumps(line), flush=True)
+    applicable = [r for r in recs if "port" in r]
+    res = {"cells": len(recs), "applicable": len(applicable),
+           "skipped": sum("skipped" in r for r in recs),
+           "errors": len(errors), "wall_s": time.perf_counter() - t0}
+    print("dryrun_check " + json.dumps(res), flush=True)
+    if errors:
+        fail("dry run cells raised: "
+             f"{[(r['arch'], r['shape']) for r in errors]}")
+    if len(recs) != DRYRUN_CELLS:
+        fail(f"the dry run gave {len(recs)} cells, not {DRYRUN_CELLS}")
+    if not all(r["port"]["counted_flops"] and r["port"]["counted_flops"] > 0
+               for r in applicable):
+        fail("a dry-run cell counted no FLOPs")
+    return res
+
+
 # -- phase 14: the report -----------------------------------------------------
 
 GATE_CU = "src/repro_torch/csrc/gate_apply.cu"
@@ -3633,7 +3860,7 @@ KERNELS = {
     "unpack_codes_tiles": (PACK_CU, "src/repro/kernels/pack.py:85", "ops",
                            {}),
     "pack_bitmap_tiles": (PACK_CU, "src/repro/kernels/pack.py:109", "ops",
-                          {}),
+                          {"dtype": "int32"}),
     "unpack_bitmap_tiles": (PACK_CU, "src/repro/kernels/pack.py:132", "ops",
                             {}),
     # their launches: every serve phase's (the prefills and the captured
@@ -3714,6 +3941,9 @@ def main() -> int:
         print(f"build {name} {secs:.3f}s " + " | ".join(regs[:14]),
               flush=True)
     tensor_core_check(build, log)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    dry = dryrun_start(tmp)
 
     t_phase = time.perf_counter()
 
@@ -3735,6 +3965,7 @@ def main() -> int:
                 "single_group": timed("single_group", single_group_phase())}
     launches["main"] = timed("main", main_phase("main", MAIN_QUBITS, "host",
                                                 args.profile))
+    timed("dryrun", dryrun_phase(dry))
     launches["main_device"] = timed("main_device", main_phase(
         "main_device", args.device_qubits, "device", args.profile,
         skip_gates=args.device_skip_gates))
@@ -3747,9 +3978,10 @@ def main() -> int:
     timed("resilience", resilience_phase())
     launches["multidevice"] = timed("multidevice", multidevice_phase())
     timed("cli", cli_phase())
+    launches["serve_seqattn"] = {}
     launches["serve"] = timed("serve", serve_phase(
         "serve", SERVE_ARCH, SERVE_STEPS, args.seed, args.profile,
-        eager_too=True))
+        eager_too=True, seqattn=launches["serve_seqattn"]))
     launches["serve_gemma3"] = timed("serve_gemma3", serve_phase(
         "serve_gemma3", GEMMA_ARCH, GEMMA_STEPS, args.seed, args.profile,
         eager_too=False))

@@ -1,9 +1,11 @@
 """Time the redesigned kernels at other tile shapes on one NVIDIA GPU.
 
     python3 chip_tiles.py [--rounds N] [--kinds attention,gate,ring,probe,
-                                              mid,mid_probe,kvdq,kvdq_probe]
+                                              mid,mid_probe,kvdq,kvdq_probe,
+                                              pack]
 
-Builds copies of src/repro_torch/csrc/attention.cu and gate_apply.cu with
+Builds copies of src/repro_torch/csrc/attention.cu, gate_apply.cu and
+pack.cu with
 other values of their tile constants (one nvcc per copy, all started
 together, into a temporary directory), binds each copy's C entry points in
 place of the built library's, checks it against the plain version and
@@ -32,7 +34,10 @@ times it with chip_smoke.py's helpers (CUDA events over cold inputs):
   QK^T; ``kvdq_probe`` times the source and two probes of it (not
   checked), bf16 q: the dequantize and products alone on what the ring
   holds (no copies) and the stream alone (copies and barriers, no
-  compute), with the SM clock and power under each.
+  compute), with the SM clock and power under each;
+* pack_bitmap_tiles (B9a) on 2^22 int32 and bool bits, for threads a
+  block, 1,024-element rounds a warp loads before it packs, and the most
+  blocks an SM (0: as many as the occupancy allows).
 
 Prints a kernel_ptxas line (registers, spills) per variant and one JSON
 line per variant and round; the first variant of each kind is the
@@ -73,6 +78,10 @@ MID_CLAMP = "  const long long lane_units = mid_units<K>(outer, inner);\n"
 KV_VARIANTS = [(128, 2, 2, 16), (128, 2, 2, 8), (64, 3, 2, 16),
                (64, 2, 2, 16), (64, 3, 3, 16), (64, 2, 3, 8),
                (128, 2, 1, 16)]
+#: (threads a block, rounds a warp loads at once, blocks an SM) of B9a
+#: (PACK_TILING)
+PACK_VARIANTS = [(256, 1, 0), (128, 1, 0), (512, 1, 0), (1024, 1, 0),
+                 (256, 2, 0), (128, 2, 0), (256, 1, 4)]
 #: probes of B7's ring body (timed, not checked): "compute" drops the slab
 #: copies and the stores (stores stay behind tests that do not hold);
 #: "stream" keeps them and runs 1 of the K steps of the FMAs
@@ -146,6 +155,8 @@ def sources(tmp: str, kinds) -> dict[str, tuple[str, str, dict]]:
         attn = f.read()
     with open(os.path.join(CSRC, "gate_apply.cu")) as f:
         gate = f.read()
+    with open(os.path.join(CSRC, "pack.cu")) as f:
+        pack = f.read()
 
     def tiled(macro: str, *values: int) -> str:
         return f"#define {macro} {', '.join(map(str, values))}\n"
@@ -175,6 +186,10 @@ def sources(tmp: str, kinds) -> dict[str, tuple[str, str, dict]]:
             "kvdq", tiled("KV_TILING", tile, stages, per_sm, kd) + attn,
             {"tile": tile, "stages": stages, "blocks_sm": per_sm,
              "kdims": kd})
+    for threads, rounds, per_sm in PACK_VARIANTS if "pack" in kinds else ():
+        out[f"pack_t{threads}_r{rounds}_b{per_sm}"] = (
+            "pack", tiled("PACK_TILING", threads, rounds, per_sm) + pack,
+            {"threads": threads, "rounds": rounds, "blocks_sm": per_sm})
     for kind, base, table in (("probe", gate, PROBE_EDITS),
                               ("mid_probe", gate, MID_PROBE_EDITS),
                               ("kvdq_probe", attn, KV_PROBE_EDITS)):
@@ -210,7 +225,8 @@ def build_all(build, cs, paths: dict) -> dict[str, str]:
                     (name.startswith("mid") and "mid_ring_kernel" in fn
                      and ("ILi32E" in fn or "ILi4E" in fn)) or \
                     (name.startswith("kvdq") and "kvdq_partial" in fn
-                     and "ILi128E" in fn):
+                     and "ILi128E" in fn) or \
+                    (name.startswith("pack") and "pack_bitmap_kernel" in fn):
                 print(f"kernel_ptxas {name} {fn} " + " | ".join(lines),
                       flush=True)
         libs[name] = lib
@@ -309,7 +325,8 @@ def main() -> int:
                     help="times each variant is timed, in turns")
     ap.add_argument("--kinds", default="attention,gate,ring",
                     help="the variants to build and time (comma list of "
-                    "attention, gate, ring, probe)")
+                    "attention, gate, ring, probe, mid, mid_probe, kvdq, "
+                    "kvdq_probe, pack)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -321,6 +338,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gate_apply as ga
     from repro_torch.kernels import kv_dequant_attention as kd
+    from repro_torch.kernels import pack as pk
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_line(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -357,6 +375,11 @@ def main() -> int:
                         cs.SERVE_BATCH, 8, 4, cs.SERVE_MAX_LEN, 128,
                         cs.SERVE_MAX_LEN - 1, dt)["ms"]
                         for dt in ("bfloat16", "float32")}
+                elif kind == "pack":
+                    rebind(pk, libs[name])
+                    row = {f"{dt}_ms": cs.bitmap_case(
+                        cs.GROUP, dt, seed=76, timed=True)["ms"]
+                        for dt in ("int32", "bool")}
                 elif kind == "kvdq_probe":
                     rebind(kd, libs[name])
                     kd._grids.clear()
@@ -372,7 +395,7 @@ def main() -> int:
                 print("tile_variant " + json.dumps(
                     {"round": rnd, "variant": name, **consts, **row}),
                     flush=True)
-    fa._fns = ga._fns = kd._fns = None
+    fa._fns = ga._fns = kd._fns = pk._fns = None
     kd._grids.clear()
     return 0
 

@@ -21,11 +21,22 @@
 // What bounds them: HBM bytes.  None does more than a shift and an or per
 // element.  Code packing moves 4 B in and 2 B out per code (unpacking the
 // reverse); bitmap packing 4 B (int32 bits, or 1 B for bool) in and 1/8 B
-// out per element (unpacking the reverse).  The design keeps each byte to
-// one coalesced access: a warp covers 32 neighbouring words or elements,
-// each thread loads kPer items before it computes (the loads are in flight
-// together), and a sign word is one __ballot_sync of the warp whose 32
-// lanes hold its 32 elements.
+// out per element (unpacking the reverse).  The code kernels and the
+// bitmap unpacker keep each byte to one coalesced access: a warp covers 32
+// neighbouring words or elements, each thread loads kPer items before it
+// computes (the loads are in flight together).
+//
+// The bitmap packer (pack_bitmap_kernel) works a warp "round" of 1,024
+// elements, 32 output words, at a time.  Consecutive lanes read
+// consecutive 16-byte chunks through the read-only path, so one warp load
+// brings 512 B: 4 words' worth of int32 bits, 16 of bool.  A lane turns its
+// chunk into a nibble (int32) or half a word (bool); the 8 or 2 lanes of one
+// word OR their pieces with shuffles, and one more shuffle hands word L of
+// the round to lane L, so the round leaves as one 128-byte store.  Every
+// load of a round is issued before any is used, and the grid is sized from
+// the SM count and the occupancy the build reports, each warp looping over
+// rounds.  An input not on a 16-byte boundary takes the same kernel with
+// the chunk read 4 bytes (int32) or a byte (bool) at a time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,29 +95,138 @@ unpack_codes_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-// n is a multiple of 32 (whole 128-lane rows), and so is every warp's first
-// element: a warp is either wholly inside the array or wholly outside it.
+// The bitmap packer's constants: threads a block, rounds a warp loads before
+// it packs any, most blocks an SM (0: as many as the occupancy allows).
+// chip_tiles.py builds copies with other values.
+#ifndef PACK_TILING
+#define PACK_TILING 256, 1, 0
+#endif
+constexpr int kBitTiling[] = {PACK_TILING};
+constexpr int kBitThreads = kBitTiling[0];
+constexpr int kBitRounds = kBitTiling[1];
+constexpr int kBitPerSM = kBitTiling[2];
+constexpr int kRound = 1024;              // elements a warp round: 32 words
+
+// The 16-byte chunk of bits at element e, zeros past n (n and e are
+// multiples of the chunk's elements, so a chunk is wholly in or out).
+template <typename BitT, bool kVec>
+__device__ __forceinline__ uint4 load_chunk(const BitT* __restrict__ bits,
+                                            long long e, long long n) {
+  if (e >= n) return make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kVec) {
+    return __ldg(reinterpret_cast<const uint4*>(bits + e));
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if constexpr (sizeof(BitT) == 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = (uint32_t)__ldg(reinterpret_cast<const int32_t*>(bits) + e + j);
+  } else {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(bits) + e;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      w[j / 4] |= (uint32_t)__ldg(p + j) << (8 * (j % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Bit i of a 4-byte word's nibble = its byte i is nonzero: the bytes' low
+// bits (0, 8, 16, 24) times 1 + 2^7 + 2^14 + 2^21 land at 21 ... 24, with
+// no two partial products on one bit.
+__device__ __forceinline__ uint32_t byte_nibble(uint32_t x) {
+  const uint32_t m = __vcmpne4(x, 0u) & 0x01010101u;
+  return ((m * 0x00204081u) >> 21) & 0xFu;
+}
+
+// A chunk's set bits, element 0 lowest: 4 (int32) or 16 (bool) of them.
 template <typename BitT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t chunk_bits(uint4 c) {
+  if constexpr (sizeof(BitT) == 4)
+    return (uint32_t)(c.x != 0u) | (uint32_t)(c.y != 0u) << 1 |
+           (uint32_t)(c.z != 0u) << 2 | (uint32_t)(c.w != 0u) << 3;
+  return byte_nibble(c.x) | byte_nibble(c.y) << 4 | byte_nibble(c.z) << 8 |
+         byte_nibble(c.w) << 12;
+}
+
+// n is a multiple of 32: whole words.  The loop bound is warp-uniform, so
+// every shuffle has all 32 lanes.
+template <typename BitT, bool kVec>
+__global__ void __launch_bounds__(kBitThreads)
 pack_bitmap_kernel(const BitT* __restrict__ bits,
                    uint32_t* __restrict__ words, long long n) {
+  constexpr int kEl = 16 / (int)sizeof(BitT);      // elements a chunk
+  constexpr int kLoads = kRound / (32 * kEl);      // loads a lane a round
+  constexpr int kLanesWord = 32 / kEl;             // lanes a word
+  constexpr int kWordsLoad = 32 / kLanesWord;      // words a warp load
   const int lane = threadIdx.x & 31;
-  for (long long base = (long long)blockIdx.x * kChunk; base < n;
-       base += (long long)gridDim.x * kChunk) {
-    bool b[kPer];
+  const long long warp =
+      ((long long)blockIdx.x * kBitThreads + threadIdx.x) >> 5;
+  const long long warps = ((long long)gridDim.x * kBitThreads) >> 5;
+  const long long rounds = (n + kRound - 1) / kRound;
+  const long long n_words = n >> 5;
+  for (long long r0 = warp * kBitRounds; r0 < rounds;
+       r0 += warps * kBitRounds) {
+    uint4 chunk[kBitRounds][kLoads];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const long long e = base + k * kThreads + threadIdx.x;
-      b[k] = e < n && bits[e] != 0;
-    }
+    for (int r = 0; r < kBitRounds; ++r)
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const long long e = base + k * kThreads + threadIdx.x;
-      if (e - lane >= n) break;                  // warp-uniform
-      const unsigned s = __ballot_sync(kFull, b[k]);
-      if (lane == 0) words[e >> 5] = s;
+      for (int k = 0; k < kLoads; ++k)
+        chunk[r][k] = load_chunk<BitT, kVec>(
+            bits, (r0 + r) * kRound + (long long)(k * 32 + lane) * kEl, n);
+#pragma unroll
+    for (int r = 0; r < kBitRounds; ++r) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        uint32_t part = chunk_bits<BitT>(chunk[r][k])
+                        << (kEl * (lane % kLanesWord));
+#pragma unroll
+        for (int o = 1; o < kLanesWord; o <<= 1)
+          part |= __shfl_xor_sync(kFull, part, o);
+        // load k holds words kWordsLoad*k ... of the round; word j of it
+        // sits in every lane of group j; lane L keeps word L
+        const uint32_t got =
+            __shfl_sync(kFull, part, (lane % kWordsLoad) * kLanesWord);
+        if (lane / kWordsLoad == k) word = got;
+      }
+      const long long w = (r0 + r) * 32 + lane;
+      if (w < n_words) words[w] = word;
     }
   }
+}
+
+// Blocks for n elements: no more than the card holds at once (SMs times the
+// occupancy of this instantiation, cached by device), nor than n needs.
+template <typename BitT, bool kVec>
+unsigned bitmap_grid(long long n) {
+  constexpr int kDevices = 64;
+  static int resident[kDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int cap = 1;
+  if (dev >= 0 && dev < kDevices) {
+    if (resident[dev] == 0) {
+      int sms = 0, per_sm = 0;
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pack_bitmap_kernel<BitT, kVec>, kBitThreads, 0);
+      if (kBitPerSM > 0 && per_sm > kBitPerSM) per_sm = kBitPerSM;
+      resident[dev] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    }
+    cap = resident[dev];
+  }
+  const long long per_block = (long long)(kBitThreads / 32) * kBitRounds *
+                              kRound;
+  const long long need = (n + per_block - 1) / per_block;
+  return (unsigned)(need < cap ? need : cap);
+}
+
+template <typename BitT, bool kVec>
+void launch_pack_bitmap(const void* bits, uint32_t* words, long long n,
+                        cudaStream_t s) {
+  pack_bitmap_kernel<BitT, kVec><<<bitmap_grid<BitT, kVec>(n), kBitThreads,
+                                   0, s>>>(static_cast<const BitT*>(bits),
+                                           words, n);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -164,12 +284,13 @@ int pack_bitmap_i32(const void* bits, int bit_bytes, void* words,
   if (n <= 0 || n % 32 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* out = static_cast<uint32_t*>(words);
+  const bool vec = reinterpret_cast<uintptr_t>(bits) % 16 == 0;
   if (bit_bytes == 1)
-    pack_bitmap_kernel<uint8_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(bits), out, n);
+    (vec ? launch_pack_bitmap<uint8_t, true>
+         : launch_pack_bitmap<uint8_t, false>)(bits, out, n, s);
   else if (bit_bytes == 4)
-    pack_bitmap_kernel<int32_t><<<grid_for(n), kThreads, 0, s>>>(
-        static_cast<const int32_t*>(bits), out, n);
+    (vec ? launch_pack_bitmap<int32_t, true>
+         : launch_pack_bitmap<int32_t, false>)(bits, out, n, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

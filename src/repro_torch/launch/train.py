@@ -5,8 +5,10 @@ config's optimizer (lr 3e-3, its moment dtype), optional error-bounded
 gradient compression, synthetic tokens, checkpoints every 25 steps through
 ``TrainRuntime``; it prints ``repro``'s ``[train]`` line.  It runs on
 ``--device`` (default ``cuda:0``; ``cpu`` runs every kernel's plain
-version).  ``--mesh`` takes ``1x1`` only: the mesh and sharded parameters
-belong to the dry run's slice (ROADMAP A12g, ``distributed/sharding.py``).
+version).  ``--mesh`` takes ``1x1`` only: the sharding rules and the mesh
+are ported (``distributed/sharding.py``, ``launch/mesh.py``; the dry run
+reads them), but running a step sharded over a mesh, FSDP x TP by hand, is
+not (ROADMAP A12h).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
         --steps 50 [--full] [--grad-compress] [--device cpu]
@@ -46,9 +48,9 @@ def setup(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: a device mesh and sharded parameters are "
-            "not ported yet (ROADMAP A12g, distributed/sharding.py); the "
-            "port trains on one device (--mesh 1x1)")
+            f"--mesh {args.mesh}: sharded execution over a device mesh is "
+            "not ported yet (ROADMAP A12h: sharded execution over a host "
+            "mesh); the port trains on one device (--mesh 1x1)")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)

@@ -16,8 +16,8 @@ its source (T != S, unmasked) when it projects them, and a plain softmax
 over every cached slot when it is handed a (k, v) pair, as ``repro``'s
 XLA does.  Softmax accumulates in f32; activations are bf16.
 
-Not ported yet (it raises ``NotImplementedError``): sequence-parallel
-attention (A12g).
+``cfg.seq_parallel_attn`` takes the same call as well: ``repro``'s only
+adds sharding constraints, which are no-ops on one device.
 
 Caches are written in place: ``update_cache`` stores the new entries into
 the given (view of the stacked) cache tensors and returns them, where the
@@ -110,10 +110,12 @@ def attention_full(x, prm, cfg: ModelConfig, positions, *,
     ``positions`` is the (S,) vector 0..S-1 every caller passes; the causal
     and window masks are by sequence index, which equals the JAX package's
     masks by position for it.  ``window`` W > 0 keeps i - j < W.
+
+    ``cfg.seq_parallel_attn`` runs the same call: ``repro``'s only adds
+    sharding constraints (keys and values over ``model``), no-ops on one
+    device, and the port has no mesh at run time; the dry run counts its
+    collectives (``launch/dryrun.py``).
     """
-    if cfg.seq_parallel_attn:
-        raise NotImplementedError(
-            "sequence-parallel attention is not ported yet (ROADMAP A12g)")
     S = x.shape[1]
     if positions.shape != (S,):
         raise ValueError(f"attention_full: positions of shape "

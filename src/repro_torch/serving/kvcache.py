@@ -38,7 +38,8 @@ from ..models.layers import rms_norm
 
 __all__ = ["quantize_kv", "dequantize_kv", "compress_prefill_cache",
            "compressed_attention_decode", "compressed_cross_decode",
-           "make_compressed_decode_step", "kv_bytes_ratio"]
+           "make_compressed_decode_step", "kv_bytes_ratio",
+           "init_compressed_cache_spec"]
 
 def kv_bytes_ratio(hd: int) -> float:
     """bf16 bytes / compressed bytes per element."""
@@ -193,3 +194,16 @@ def make_compressed_decode_step(cfg: ModelConfig):
                                 batch["pos"], batch.get("aux"),
                                 kv_codec=True)
     return decode
+
+
+def init_compressed_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """Abstract quantized-cache tree for the dry run: ``repro``'s
+    ``jax.eval_shape`` of the compressed zero cache, here the same tree of
+    tensors on the ``meta`` device (shapes and dtypes, no storage).  As
+    ``repro``'s, it is the decoder-only layout for any config: an
+    encoder-decoder one gets its decoder's self-attention stack."""
+    meta = torch.device("meta")
+    if cfg.encoder is not None:
+        cfg = cfg.with_(encoder=None)
+    return compress_prefill_cache(
+        T.init_decode_cache(cfg, batch, max_len, device=meta))

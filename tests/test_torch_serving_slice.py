@@ -283,13 +283,32 @@ def test_full_qwen3_params_on_meta_match_the_jax_tree(J):
     assert n == cfg.param_count() + cfg.n_layers * 2 * cfg.hd + cfg.d_model
 
 
-def test_unported_moe_windows_and_cross_attention_raise():
-    dense = reduced_config(get_config("qwen3-4b"))
-    prm = A.init_attn_params(None, dense, device=CPU)
-    x = torch.zeros((1, 4, dense.d_model), dtype=torch.bfloat16)
-    pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="A12g"):
-        A.attention_full(x, prm, dense.with_(seq_parallel_attn=True), pos)
+def test_seq_parallel_attention_is_the_plain_call(J):
+    """``seq_parallel_attn=True`` on reduced qwen3-4b: the port's
+    attention_full equals its own ``False`` call bit for bit (the same B10
+    call: ``repro``'s flag only adds sharding constraints, no-ops on one
+    device), and ``repro``'s ``True`` call within LOGIT_RTOL of its max."""
+    from repro.models import attention as JA
+    jcfg = J.reduced_config(J.get_config("qwen3-4b"))
+    tcfg = reduced_config(get_config("qwen3-4b"))
+    jp = J.T.init_params(jcfg, J.jax.random.PRNGKey(3))
+    tp = lm_params_from_numpy(_np_tree(J, jp), CPU)
+    jprm = J.jax.tree.map(lambda a: a[0], jp["units"][0]["attn"])
+    tprm = {k: v[0] for k, v in tp["units"][0]["attn"].items()}
+    x = np.random.default_rng(5).standard_normal(
+        (B, S, tcfg.d_model)).astype(np.float32)
+    tx = torch.from_numpy(x).bfloat16()
+    pos = torch.arange(S)
+    want, (wk, wv) = A.attention_full(tx, tprm, tcfg, pos)
+    got, (gk, gv) = A.attention_full(
+        tx, tprm, tcfg.with_(seq_parallel_attn=True), pos)
+    assert torch.equal(got, want)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    jout, _ = JA.attention_full(
+        J.jnp.asarray(x, J.jnp.bfloat16), jprm,
+        jcfg.with_(seq_parallel_attn=True), J.jnp.arange(S))
+    ref = np.asarray(jout, np.float32)
+    assert _err(got.float().numpy(), ref) <= LOGIT_RTOL * np.abs(ref).max()
 
 
 def test_lm_trees_cross_bit_for_bit(J):

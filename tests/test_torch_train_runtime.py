@@ -328,7 +328,7 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[train] qwen3-4b mesh=1x1: loss " in out and "ms/step" in out
     assert CheckpointManager(str(tmp_path)).steps() == [0, 2]
-    with pytest.raises(NotImplementedError, match="A12g"):
+    with pytest.raises(NotImplementedError, match="A12h"):
         launch.main(["--mesh", "2x4", "--device", "cpu"])
 
 
