@@ -195,7 +195,28 @@ Phases, in order (any failure exits non-zero and prints no result):
                   exit 0, the batched-run line and the average printed;
                   then qsim --devices 2 on the device codec: exit 0, the
                   slots line and an exchange line with hand-offs.
-14. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
+14. tooling     — the port's host tooling as subprocesses with no card
+                  (CUDA_VISIBLE_DEVICES empty, the checkout's src on
+                  PYTHONPATH), all started together: python -m
+                  repro_torch.analysis src/repro_torch (exit 0, 0
+                  violations in every .py of src/repro_torch, none
+                  quarantined), --list (the four checkers), --plan on
+                  the JSON of a qft-26 plan compiled on cuda:0 here
+                  (exit 0, 0 errors, its fingerprint named),
+                  repro_torch.analysis.linkcheck README.md docs and
+                  repro_torch.analysis.api_doc --check docs/API_torch.md
+                  (exit 0 each); one tooling_check line a command.
+15. examples    — examples/quickstart_torch.py and
+                  examples/qaoa_sim_torch.py, loaded by path and run in
+                  this process on cuda:0: quickstart at its defaults
+                  (qft-14) prints a fidelity >= 0.99999 and launches
+                  gemm_planes_batch; qaoa at its defaults (18 qubits, 3
+                  points) prints 3 runs and no stage-fn compile after
+                  run 1; qaoa at 12 qubits, block bits 7, 2 points on
+                  the card and with --device cpu: <cut> within 1e-4
+                  relative.  One example_check line a run; the card
+                  runs' launches add to the report's.
+16. serve       — qwen3-4b at full width and depth (4.0 B bf16 weights
                   drawn on cuda:0 from --seed): make_prefill_step on 8
                   random prompts of 2,048 tokens with max_len 4,096 (36
                   flash_attention launches), compress_prefill_cache, then
@@ -219,7 +240,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   config with seq_parallel_attn=True, prefill (36 B10
                   launches) and 32 captured compressed steps, every
                   logits tensor bit for bit the captured run's.
-15. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
+17. serve_gemma3 — gemma3-12b at full width and depth (48 layers, 40
                   sliding-window ones of W 1,024 and 8 global, hd 256;
                   11.8 B bf16 weights drawn after qwen3-4b's are freed),
                   the same prompts: prefill longer than the window (48
@@ -227,7 +248,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   are rings of 1,024), 16 captured compressed decode steps
                   (48 B11 a step), the plain teacher-forced run within
                   2e-2, cache >= 1.7x smaller than bf16.
-16-19. serve_mixtral, serve_arctic, serve_recurrentgemma, serve_xlstm —
+18-21. serve_mixtral, serve_arctic, serve_recurrentgemma, serve_xlstm —
                   the MoE and recurrent models (ROADMAP A12c, A12d) through
                   the same serving entry points and checks, each after the
                   last one's memory is freed, 8 captured and 8 eager
@@ -249,7 +270,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   MOE_PARTED_RTOL.  In every serve phase the plain run's
                   B10 goes a batch row at a time, and the phase prints
                   its peak device memory.
-20. serve_llama_vision — llama-3.2-vision-90b (ROADMAP A12e) at full
+22. serve_llama_vision — llama-3.2-vision-90b (ROADMAP A12e) at full
                   width cut to 10 of its 100 layers (2 units of 4
                   self-attention and 1 cross-attention layer, 10.7 B
                   weights), 576 image embeddings from --seed as the
@@ -260,7 +281,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   step: the cross layers' over every image slot), the
                   plain run within 2e-2, the attention cache (self and
                   cross) >= 1.7x smaller than bf16.
-21. serve_whisper — whisper-large-v3 whole (32 encoder and 32 decoder
+23. serve_whisper — whisper-large-v3 whole (32 encoder and 32 decoder
                   layers, 1.5 B weights), 8 x 1,500 frames from --seed as
                   the stub conv frontend's output and a 64-token decoder
                   prompt, max_len 512 (its dec_len): 96 B10 launches a
@@ -269,7 +290,7 @@ Phases, in order (any failure exits non-zero and prints no result):
                   captured raw decode steps (repro decodes whisper on raw
                   caches: no hand kernel a step), bit for bit equal, and
                   the plain run within 2e-2.
-22. train       — qwen3-4b whole (36 layers, 4.02 B bf16 weights from
+24. train       — qwen3-4b whole (36 layers, 4.02 B bf16 weights from
                   --seed) trained on cuda:0 through
                   repro_torch.train.step: step 0's loss and gradients
                   through B10 (72 launches: 36 in the forward, 36 in the
@@ -287,18 +308,18 @@ Phases, in order (any failure exits non-zero and prints no result):
                   last step's device time: GEMMs, B10, the attention
                   backward, the optimizer; that step is left out of the
                   mean step time and tokens/s).
-23. train_gc    — qwen3-4b at full width cut to 4 of 36 layers (printed)
+25. train_gc    — qwen3-4b at full width cut to 4 of 36 layers (printed)
                   with GradCompressor(1e-2) for 4 steps: residuals and
                   losses finite, no gradient cut, one leaf's round trip
                   within 1.01 b_r wherever its code is nonzero.
-24. train_runtime — reduced qwen3-4b through TrainRuntime on cuda:0,
+26. train_runtime — reduced qwen3-4b through TrainRuntime on cuda:0,
                   checkpoints every step in a temporary directory: a
                   failure injected at step 2, restarted from the last
                   checkpoint, equal bit for bit (parameters and optimizer
                   state) to an uninterrupted run; then python -m
                   repro_torch.launch.train --arch qwen3-4b --steps 3 as a
                   subprocess, its [train] line printed.
-25. report      — one JSON line of kernels (B10's and B11's launches
+27. report      — one JSON line of kernels (B10's and B11's launches
                   summed over the serve and train phases), the card's
                   name and power limit, and last the ok line.
 
@@ -2839,14 +2860,21 @@ CLI_DEVICES_ARGS = ["--circuit", "qft", "--qubits", "20", "--devices",
                     "2", "--codec-backend", "device"]
 
 
-def _qsim(argv: list) -> tuple:
-    env = dict(os.environ)
+def _src_env(**extra) -> dict:
+    """This process's environment with the checkout's ``src`` first on
+    PYTHONPATH (and ``extra`` set): what every subprocess gets."""
+    env = dict(os.environ, **extra)
     env["PYTHONPATH"] = os.path.join(HERE, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _qsim(argv: list) -> tuple:
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.qsim"] + argv,
-        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+        cwd=HERE, env=_src_env(), capture_output=True, text=True,
+        timeout=600)
     wall = time.perf_counter() - t0
     lines = out.stdout.splitlines()
     print("cli_check " + json.dumps({
@@ -2876,6 +2904,170 @@ def cli_phase() -> None:
     if not slots or not moved or moved[0].endswith(" 0 block hand-off(s)"):
         fail("qsim --devices 2 printed no slots line or no exchange line "
              "with hand-offs")
+
+
+# -- the host tooling and the Simulator's examples ---------------------------
+
+TOOLING_QUBITS = 26              # the --plan check's plan: qft-26 on the card
+TOOLING_TIMEOUT_S = 300
+LINT_CHECKERS = ("fault-coverage", "jit-purity", "lock-discipline",
+                 "typed-errors")
+
+
+def _tool(argv: list, env: dict) -> dict:
+    """``python -m <argv>`` from the checkout's root; killed, with rc
+    "timeout", past TOOLING_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-m"] + argv, cwd=HERE,
+                             env=env, capture_output=True, text=True,
+                             timeout=TOOLING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        return {"argv": argv, "rc": "timeout",
+                "wall_s": time.perf_counter() - t0, "lines": [],
+                "stderr": ""}
+    return {"argv": argv, "rc": out.returncode,
+            "wall_s": time.perf_counter() - t0,
+            "lines": out.stdout.splitlines()[-6:],
+            "stderr": out.stderr.strip()[-2000:]}
+
+
+def tooling_phase(tmp: str) -> dict:
+    """The port's host tooling as subprocesses with no card and the
+    checkout's src on PYTHONPATH, all started together: the lint over
+    src/repro_torch (0 violations in every .py, none quarantined), its
+    checker list, --plan on the JSON of a qft-26 plan the port compiled
+    on cuda:0 here (0 errors, the plan's fingerprint named), the link
+    check of README.md and docs/, and api_doc --check of
+    docs/API_torch.md.  One tooling_check line a command."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import EngineConfig, Simulator, build_circuit
+
+    with Simulator(build_circuit("qft", TOOLING_QUBITS),
+                   EngineConfig()) as sim:
+        if sim._engine.device.type != "cuda":
+            fail(f"tooling: the plan compiled on {sim._engine.device}")
+        plan = sim.compile()
+    plan_path = os.path.join(tmp, f"qft{TOOLING_QUBITS}_plan.json")
+    with open(plan_path, "w", encoding="utf-8") as f:
+        f.write(plan.to_json())
+    runs = {
+        "lint": ["repro_torch.analysis", "src/repro_torch"],
+        "list": ["repro_torch.analysis", "--list"],
+        "plan": ["repro_torch.analysis", "--plan", plan_path],
+        "linkcheck": ["repro_torch.analysis.linkcheck", "README.md", "docs"],
+        "api_doc": ["repro_torch.analysis.api_doc", "--check",
+                    "docs/API_torch.md"],
+    }
+    env = _src_env(CUDA_VISIBLE_DEVICES="")
+    with ThreadPoolExecutor(len(runs)) as ex:
+        futures = {k: ex.submit(_tool, argv, env) for k, argv in runs.items()}
+        res = {k: f.result() for k, f in futures.items()}
+    for r in res.values():
+        print("tooling_check " + json.dumps(
+            {k: v for k, v in r.items() if k != "stderr"}), flush=True)
+    for k, r in res.items():
+        if r["rc"] != 0:
+            fail(f"tooling: {' '.join(r['argv'])} exited {r['rc']}: "
+                 f"{r['lines'][-3:]} {r['stderr']}")
+    from pathlib import Path
+    n_files = len(list(Path(HERE, "src", "repro_torch").rglob("*.py")))
+    want = f"0 violation(s) in {n_files} file(s) checked"
+    if res["lint"]["lines"][-1:] != [want]:
+        fail(f"tooling: the lint printed {res['lint']['lines'][-1:]}, "
+             f"not {want!r} (every .py of src/repro_torch, none quarantined)")
+    listed = {ln.split()[0] for ln in res["list"]["lines"] if ln.strip()}
+    if listed != set(LINT_CHECKERS):
+        fail(f"tooling: --list named {sorted(listed)}")
+    verdict = f"plan {plan.fingerprint[:12]}: 0 error(s)"
+    if not any(ln.startswith(verdict) for ln in res["plan"]["lines"]):
+        fail(f"tooling: --plan printed {res['plan']['lines']}, not "
+             f"{verdict!r}")
+    return {"n_files": n_files, "fingerprint": plan.fingerprint[:12],
+            "wall_s": {k: r["wall_s"] for k, r in res.items()}}
+
+
+EXAMPLE_FIDELITY_MIN = 0.99999
+EXAMPLE_CUT_RTOL = 1e-4          # <cut> on the card against the CPU run
+EXAMPLE_QAOA_RUNS = 3            # qaoa_sim's default sweep
+EXAMPLE_QAOA_SMALL = ["--qubits", "12", "--block-bits", "7", "--sweep", "2"]
+
+
+def _example(name: str, argv: list, label: str) -> tuple[list, dict]:
+    """Load examples/<name>.py by path and call its main(argv) in this
+    process, its output captured, with every launch count set to 0 just
+    before and read just after.  Prints one example_check line."""
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in read_counts().items() if n}
+    lines = buf.getvalue().splitlines()
+    print("example_check " + json.dumps({
+        "example": name, "run": label, "argv": argv, "wall_s": wall,
+        "launches": launches, "lines": lines}), flush=True)
+    return lines, launches
+
+
+def _cuts(lines: list) -> list[float]:
+    return [float(ln.split("<cut> = ")[1].split()[0]) for ln in lines
+            if "<cut> = " in ln]
+
+
+def examples_phase() -> dict:
+    """examples/quickstart_torch.py and examples/qaoa_sim_torch.py in this
+    process on cuda:0: quickstart at its defaults (qft-14) prints a
+    fidelity >= 0.99999 and launches gemm_planes_batch; qaoa at its
+    defaults (18 qubits, 3 points) prints 3 runs with the stage-fn
+    compiles of run 1 unchanged after it; then qaoa at 12 qubits, block
+    bits 7, 2 points on the card and with --device cpu beside it, every
+    <cut> within 1e-4 relative.  Returns the launches of the card runs."""
+    total: dict[str, int] = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    lines, launches = _example("quickstart_torch", [], "card")
+    add(launches)
+    fid = [float(ln.split(":")[1]) for ln in lines
+           if ln.startswith("fidelity")]
+    if not fid or not fid[0] >= EXAMPLE_FIDELITY_MIN:
+        fail(f"examples: quickstart printed fidelity {fid}, want >= "
+             f"{EXAMPLE_FIDELITY_MIN}")
+    if launches.get("gemm_planes_batch", 0) <= 0:
+        fail("examples: quickstart on cuda:0 launched gemm_planes_batch no "
+             "time")
+
+    lines, launches = _example("qaoa_sim_torch", [], "card")
+    add(launches)
+    compiles = [int(ln.split("compiles so far: ")[1].rstrip(")"))
+                for ln in lines if "compiles so far: " in ln]
+    if len(compiles) != EXAMPLE_QAOA_RUNS or len(set(compiles)) != 1:
+        fail(f"examples: qaoa printed stage-fn compiles {compiles}, want "
+             f"{EXAMPLE_QAOA_RUNS} runs with run 1's count kept")
+    if not all(math.isfinite(c) for c in _cuts(lines)):
+        fail("examples: qaoa printed a non-finite <cut>")
+
+    card, launches = _example("qaoa_sim_torch", EXAMPLE_QAOA_SMALL, "card")
+    add(launches)
+    cpu, _ = _example("qaoa_sim_torch",
+                      EXAMPLE_QAOA_SMALL + ["--device", "cpu"], "cpu")
+    got, want = _cuts(card), _cuts(cpu)
+    if len(got) != len(want) or not got or any(
+            abs(g - w) > EXAMPLE_CUT_RTOL * abs(w) for g, w in zip(got, want)):
+        fail(f"examples: qaoa <cut> on the card {got}, on the CPU {want}")
+    return total
 
 
 # -- phases 13-14: LLM serving on the compressed KV cache --------------------
@@ -3725,15 +3917,13 @@ def train_runtime_phase() -> dict:
         if res["restarts"] != 1 or differ:
             fail(f"train_runtime: the restarted run ({res['restarts']} "
                  f"restarts) differs from the uninterrupted one at {differ}")
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.path.join(HERE, "src") + (
-            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
              TRAIN_ARCH, "--steps", "3", "--ckpt-dir",
              os.path.join(tmp, "launch")],
-            cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+            cwd=HERE, env=_src_env(), capture_output=True, text=True,
+            timeout=600)
     lines = [ln for ln in out.stdout.splitlines()
              if ln.startswith(f"[train] {TRAIN_ARCH} mesh=1x1: loss ")]
     print("train_cli_check " + json.dumps({
@@ -3764,8 +3954,7 @@ def dryrun_start(tmp: str) -> tuple:
     beside the kernel phases and :func:`dryrun_phase` joins it.  It is
     stopped at exit if still running."""
     out = os.path.join(tmp, "dryrun.json")
-    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    env = _src_env(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     log = open(os.path.join(tmp, "dryrun.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
@@ -3878,7 +4067,7 @@ KERNELS = {
 def kernel_report(checks: dict, launches: dict) -> list[dict]:
     """One entry per kernel of the port: its timed main-shape case, its
     worst error over every case, and its launches on the path that runs
-    it (the codec kernels: their fused wave case)."""
+    it (the codec kernels: their fused wave case) plus the examples'."""
     out = []
     for name, (source, replaces, path, sel) in KERNELS.items():
         if name in ("encode", "decode"):
@@ -3895,7 +4084,9 @@ def kernel_report(checks: dict, launches: dict) -> list[dict]:
             err = max(c["max_abs_err"] for c in cases if not c.get("rtol"))
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[path][name],
+            "replaces": replaces,
+            "launches": launches[path][name]
+            + launches["examples"].get(name, 0),
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
@@ -3978,6 +4169,8 @@ def main() -> int:
     timed("resilience", resilience_phase())
     launches["multidevice"] = timed("multidevice", multidevice_phase())
     timed("cli", cli_phase())
+    timed("tooling", tooling_phase(tmp))
+    launches["examples"] = timed("examples", examples_phase())
     launches["serve_seqattn"] = {}
     launches["serve"] = timed("serve", serve_phase(
         "serve", SERVE_ARCH, SERVE_STEPS, args.seed, args.profile,

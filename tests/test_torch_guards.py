@@ -24,6 +24,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        sorted((ROOT / "examples").glob("*_torch.py")) + \
         [ROOT / "chip_smoke.py", ROOT / "chip_tiles.py"]
 
 
