@@ -319,9 +319,30 @@ Phases, in order (any failure exits non-zero and prints no result):
                   state) to an uninterrupted run; then python -m
                   repro_torch.launch.train --arch qwen3-4b --steps 3 as a
                   subprocess, its [train] line printed.
-27. report      — one JSON line of kernels (B10's and B11's launches
-                  summed over the serve and train phases), the card's
-                  name and power limit, and last the ok line.
+27. train_sharded — the train step sharded FSDP x TP by hand over
+                  torch.distributed (ROADMAP A12h): the train phase's run
+                  (qwen3-4b whole, B 2 x S 2,048, AdamW, remat, 4 steps)
+                  again through make_train_step(..., mesh=...) on a 1x1
+                  mesh over NCCL, 72 B10 launches and a finite grad_norm
+                  a step, each loss within 1e-5 of the train phase's, its
+                  step time and peak memory printed beside them; then a
+                  2x2 mesh as four spawned processes of cuda:0 over gloo
+                  (host copies: NCCL refuses two ranks on one card),
+                  qwen3-4b at full width cut to 4 of 36 layers, 3 steps
+                  on each data rank's rows of the global batch, against
+                  the one-device run of the same cut model and data: each
+                  step's loss within 1e-3, every gathered leaf moved,
+                  within 3 x (2 lr + 2^-7 max|w|) and its updates at
+                  cosine >= 0.99, B10 at the local head counts (16/4 of
+                  32/8) 8 times a step on every rank, and every rank's
+                  collective bytes by kind equal to the dry run's
+                  collective_bytes plus the terms it leaves out
+                  (train.step.sharded_extra_bytes).  A rank that fails
+                  fails the phase.
+28. report      — one JSON line of kernels (B10's and B11's launches
+                  summed over the serve and train phases, train_sharded's
+                  ranks included), the card's name and power limit, and
+                  last the ok line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without CUDA,
 or without the repository around it, it exits non-zero.
@@ -456,6 +477,26 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_COS, TRAIN_GRAD_RTOL = 1e-3, 0.999, 0.1
 TRAIN_GC_LAYERS, TRAIN_GC_BR = 4, 1e-2
 #: train_runtime: reduced qwen3-4b, a failure at step 2 of 5
 RUNTIME_STEPS, RUNTIME_FAIL_AT = 5, 2
+#: train_sharded: the train phase's run again through the sharded step on
+#: a 1x1 mesh over NCCL, each step's loss within SHARDED_1X1_LOSS_RTOL of
+#: the train phase's (measured on one H100: equal, 0.0); then a 2x2 mesh
+#: as four processes of cuda:0 over
+#: gloo, qwen3-4b cut to TRAIN_GC_LAYERS layers, SHARDED_STEPS steps of
+#: the global batch (each data rank its rows) against the one-device run
+#: of the same cut model and data: each step's loss within
+#: SHARDED_LOSS_RTOL (bf16, tests/test_torch_sharded_train.py's; measured
+#: 2.3e-5, 3.5e-4, 5.0e-4); each gathered leaf after the steps moved from
+#: its initial value, its three updates at cosine >= SHARDED_UPDATE_COS
+#: with the one-device run's (measured >= 0.99928), and every element
+#: within what the steps can part it by: a step moves an element about lr
+#: either way in each run (an element whose gradient is near 0 takes its
+#: sign from rounding) and rounds it once to bf16, so SHARDED_STEPS x (2
+#: lr + 2^-7 max|w|) (measured: 60% of it at worst)
+SHARDED_MESH, SHARDED_STEPS = (2, 2), 3
+SHARDED_1X1_LOSS_RTOL = 1e-5
+SHARDED_LOSS_RTOL = 1e-3
+SHARDED_UPDATE_COS = 0.99
+SHARDED_TIMEOUT_S = 600
 #: (B, S, T, Hq, G, hd, causal, window) of B10's autograd checks: causal,
 #: windowed, and over T != S keys; gradients within GRAD_RTOL (f32) or
 #: BF16_TOL_GRAD (bf16, one bf16 step) of max|g|
@@ -3680,7 +3721,7 @@ def train_phase(seed: int, profile: bool) -> dict:
     part: the kernels by name, and CUDA-event times of the attention
     backward's calls and of the optimizer update; that step is left out
     of the steady-state mean and tokens/s).  Returns the launches of the
-    steps."""
+    steps and the printed stats."""
     from unittest import mock
 
     import torch
@@ -3801,7 +3842,7 @@ def train_phase(seed: int, profile: bool) -> dict:
     print("train_stats " + json.dumps(stats), flush=True)
     del params, state, step_fn
     torch.cuda.empty_cache()
-    return launches
+    return launches, stats
 
 
 def train_gc_phase(seed: int) -> dict:
@@ -3932,6 +3973,278 @@ def train_runtime_phase() -> dict:
     if out.returncode != 0 or not lines:
         fail(f"launch.train exited {out.returncode} without its [train] "
              f"line: {out.stderr.strip()[-2000:]}")
+    return launches
+
+
+# -- phase 27: the train step sharded over a host mesh (ROADMAP A12h) ---------
+
+def _sharded_steps(step_fn, params, state, batches: list) -> tuple:
+    """``step_fn`` over ``batches``, each step timed (host clock between
+    two synchronizes), with the kernel and collective counts set to 0 just
+    before it and read just after (the collectives' bytes by kind and
+    their host seconds); returns (params, state, rows)."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    rows = []
+    for i, batch in enumerate(batches):
+        reset_counts()
+        C.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        rows.append({"step": i, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "wall_s": time.perf_counter() - t0,
+                     "flash_attention_launches":
+                         read_counts()["flash_attention"],
+                     "collective_bytes": C.read_counts(),
+                     "collective_s": C.read_seconds()["total"]})
+    return params, state, rows
+
+
+def _sharded_rank(view, seed: int, ref_path: str) -> dict:
+    """One rank of train_sharded's 2x2 mesh (a spawned process on cuda:0):
+    the cut model from ``seed``, its blocks, SHARDED_STEPS steps on its
+    rows of each batch; the collective bytes the dry run predicts for a
+    rank (plus the terms it leaves out); each leaf gathered whole after
+    the steps, which rank 0 holds against the one-device run's (read from
+    ``ref_path``) and against its initial value."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.checkpoint import flatten, flatten_specs
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        sharded_extra_bytes)
+    dev = view.device
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=TRAIN_GC_LAYERS)
+    full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    specs = SH.param_pspecs(cfg, full, view)
+    params = SH.shard_tree(full, specs, view)
+    init = flatten(full) if view.rank == 0 else None
+    del full
+    opt = make_optimizer(cfg.optimizer, TRAIN_LR,
+                         moment_dtype=cfg.opt_state_dtype)
+    state = init_train_state(cfg, params, opt)
+    dp = view.shape["data"]
+    b = TRAIN_BATCH // dp
+    first = view.index("data") * b
+    batches = [{"tokens": _train_batch(cfg, i, seed)["tokens"][
+        first:first + b]} for i in range(SHARDED_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    params, state, rows = _sharded_steps(
+        make_train_step(cfg, opt, mesh=view), params, state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    meta = D.abstract_params(cfg)
+    mspecs = SH.param_pspecs(cfg, meta, view)
+    want = D.collective_bytes(cfg, "train", TRAIN_BATCH, TRAIN_SEQ, meta,
+                              mspecs, view)
+    extra = sharded_extra_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ, meta, mspecs,
+                                view)
+    for k in ("all-gather", "reduce-scatter", "all-reduce"):
+        want[k] += extra[k]
+    want["total"] = sum(want[k] for k in ("all-gather", "reduce-scatter",
+                                          "all-reduce"))
+    out = {"rank": view.rank, "coords": list(view.coords), "steps": rows,
+           "expected_bytes": want, "extra_terms": extra["terms"],
+           "peak_allocated": peak}
+    leaf_specs = flatten_specs(params, specs)
+    ref = (torch.load(ref_path, map_location="cpu", weights_only=True)
+           if view.rank == 0 else None)
+    leaves = []
+    for key, block in flatten(params).items():
+        whole = SH.gather_leaf(block, leaf_specs[key], view)
+        if view.rank == 0:
+            r = ref[key].to(dev).float()
+            w = whole.float()
+            d0 = r - init[key].float()
+            leaves.append({
+                "leaf": key, "dtype": str(block.dtype),
+                "max_abs_diff": float((w - r).abs().max()),
+                "bound": SHARDED_STEPS * (2 * TRAIN_LR + 2.0 ** -7
+                                          * float(r.abs().max())),
+                "update_cosine": float(
+                    ((w - init[key].float()) * d0).sum()
+                    / ((w - init[key].float()).norm() * d0.norm())
+                    .clamp_min(1e-30)),
+                "moved": not torch.equal(whole, init[key]),
+                "finite": bool(torch.isfinite(w).all())})
+        del whole
+    out["leaves"] = leaves
+    return out
+
+
+def train_sharded_phase(seed: int, train_stats: dict, tmp: str) -> dict:
+    """The train step sharded FSDP x TP by hand (ROADMAP A12h).  First
+    qwen3-4b whole at the train phase's shape, seed, optimizer and steps
+    through make_train_step(..., mesh=...) on a 1x1 mesh over NCCL (a
+    world of one rank): 2 B10 launches a layer a step, each loss within
+    SHARDED_1X1_LOSS_RTOL of the train phase's, grad_norm finite; its
+    step time and peak memory printed beside the train phase's.  Then a
+    2x2 mesh as four spawned processes of cuda:0 over gloo (NCCL refuses
+    two ranks on one card): qwen3-4b at full width cut to TRAIN_GC_LAYERS
+    layers, each rank at its local head counts (16 of 32 query and 4 of 8
+    kv heads) and its rows of the global batch, SHARDED_STEPS steps,
+    against the one-device run of the same cut model and data: each
+    step's loss (the same on every rank) within SHARDED_LOSS_RTOL, every
+    leaf gathered after the steps moved, within SHARDED_STEPS x (2 lr +
+    2^-7 max|w|) and its updates at cosine >= SHARDED_UPDATE_COS,
+    2 B10 launches a layer a step on every rank, and every rank's
+    collective bytes by kind equal to launch/dryrun.py::collective_bytes
+    for the mesh and shape plus train.step.sharded_extra_bytes' terms.
+    The ranks' step times, and the host seconds of their collectives, are
+    of four processes sharing one card through host copies: no
+    interconnect is measured.  Returns the launches of
+    both meshes' steps."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    launches = {"flash_attention": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, _ = _init_model("train_sharded", TRAIN_ARCH, seed)
+    n_attn = cfg.n_layers
+    batches = [_train_batch(cfg, i, seed) for i in range(TRAIN_STEPS)]
+    view = C.init_rank(make_host_mesh(1, 1, devices=[dev]), 0,
+                       os.path.join(tmp, "rendezvous_1x1"))
+    try:
+        backend = str(torch.distributed.get_backend())
+        opt = make_optimizer(cfg.optimizer, TRAIN_LR,
+                             moment_dtype=cfg.opt_state_dtype)
+        state = init_train_state(cfg, params, opt)
+        params, state, rows = _sharded_steps(
+            make_train_step(cfg, opt, mesh=view), params, state, batches)
+    finally:
+        C.destroy()
+    del params, state, batches
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    want = train_stats["losses"]
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, want)]
+    steady = [r["wall_s"] for r in rows[1:]]
+    res = {"mesh": "1x1", "backend": backend, "arch": TRAIN_ARCH,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": [r["loss"] for r in rows], "train_losses": want,
+           "loss_rel_err": rel, "loss_bound": SHARDED_1X1_LOSS_RTOL,
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "launches": [r["flash_attention_launches"] for r in rows],
+           "step_s": [r["wall_s"] for r in rows],
+           "step_s_mean_after_first": sum(steady) / len(steady),
+           "train_step_s_mean_after_first":
+               train_stats["step_s_mean_after_first"],
+           "peak_allocated": peak,
+           "train_peak_allocated": train_stats["peak_allocated"],
+           "collective_bytes": [r["collective_bytes"]["total"]
+                                for r in rows]}
+    print("train_sharded_1x1 " + json.dumps(res), flush=True)
+    launches["flash_attention"] += sum(res["launches"])
+    if backend != "nccl":
+        fail(f"train_sharded: the 1x1 mesh on cuda:0 ran over {backend}, "
+             f"not nccl")
+    if any(n != 2 * n_attn for n in res["launches"]):
+        fail(f"train_sharded: 1x1 steps launched flash_attention "
+             f"{res['launches']} times, not {2 * n_attn} each")
+    if not all(math.isfinite(g) for g in res["grad_norms"]):
+        fail(f"train_sharded: a 1x1 grad_norm is not finite: "
+             f"{res['grad_norms']}")
+    if not max(rel) <= SHARDED_1X1_LOSS_RTOL:
+        fail(f"train_sharded: 1x1 losses {max(rel):.3e} from the train "
+             f"phase's (bound {SHARDED_1X1_LOSS_RTOL})")
+
+    # the one-device run of the cut model, the 2x2 mesh's oracle
+    cfg, params, _ = _init_model("train_sharded_2x2", TRAIN_ARCH, seed,
+                                 layers=TRAIN_GC_LAYERS)
+    opt = make_optimizer(cfg.optimizer, TRAIN_LR,
+                         moment_dtype=cfg.opt_state_dtype)
+    state = init_train_state(cfg, params, opt)
+    params, state, ref_rows = _sharded_steps(
+        make_train_step(cfg, opt), params, state,
+        [_train_batch(cfg, i, seed) for i in range(SHARDED_STEPS)])
+    ref_path = os.path.join(tmp, "train_sharded_ref.pt")
+    torch.save({k: t.cpu() for k, t in flatten(params).items()}, ref_path)
+    del params, state
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(*SHARDED_MESH,
+                          devices=[dev] * math.prod(SHARDED_MESH))
+    t0 = time.perf_counter()
+    try:
+        ranks = C.run_ranks(_sharded_rank, mesh, args=(seed, ref_path),
+                            timeout=SHARDED_TIMEOUT_S)
+    except Exception as e:  # a rank that fails fails the phase
+        fail(f"train_sharded: the 2x2 mesh failed: {e!r}"[:4000])
+    wall = time.perf_counter() - t0
+    os.remove(ref_path)
+    ref_losses = [r["loss"] for r in ref_rows]
+    bad = []
+    for rk in ranks:
+        rk_rel = [abs(r["loss"] - w) / abs(w)
+                  for r, w in zip(rk["steps"], ref_losses)]
+        got = [{k: r["collective_bytes"][k] for k in rk["expected_bytes"]}
+               for r in rk["steps"]]
+        line = {"rank": rk["rank"], "coords": rk["coords"],
+                "losses": [r["loss"] for r in rk["steps"]],
+                "loss_rel_err": rk_rel,
+                "grad_norms": [r["grad_norm"] for r in rk["steps"]],
+                "launches": [r["flash_attention_launches"]
+                             for r in rk["steps"]],
+                "collective_bytes": got[0],
+                "expected_bytes": rk["expected_bytes"],
+                "extra_terms": rk["extra_terms"],
+                "step_s": [r["wall_s"] for r in rk["steps"]],
+                "collective_s": [r["collective_s"] for r in rk["steps"]],
+                "peak_allocated": rk["peak_allocated"],
+                "wire": "gloo through host copies, 4 ranks on one card"}
+        print("train_sharded_2x2_rank " + json.dumps(line), flush=True)
+        launches["flash_attention"] += sum(line["launches"])
+        if not max(rk_rel) <= SHARDED_LOSS_RTOL:
+            bad.append(f"rank {rk['rank']} losses {max(rk_rel):.3e} from "
+                       f"the one-device run's (bound {SHARDED_LOSS_RTOL})")
+        if any(n != 2 * cfg.n_layers for n in line["launches"]):
+            bad.append(f"rank {rk['rank']} launched flash_attention "
+                       f"{line['launches']} times, not {2 * cfg.n_layers} "
+                       f"a step")
+        if any(g != rk["expected_bytes"] for g in got):
+            bad.append(f"rank {rk['rank']} moved {got} collective bytes, "
+                       f"not {rk['expected_bytes']}")
+        if not all(math.isfinite(g) for g in line["grad_norms"]):
+            bad.append(f"rank {rk['rank']} grad_norm not finite")
+    leaves = ranks[0]["leaves"]
+    far = [c["leaf"] for c in leaves
+           if not c["max_abs_diff"] <= c["bound"]]
+    turned = [c["leaf"] for c in leaves
+              if not c["update_cosine"] >= SHARDED_UPDATE_COS]
+    still = [c["leaf"] for c in leaves if not (c["moved"] and c["finite"])]
+    worst = max(leaves, key=lambda c: c["max_abs_diff"] / c["bound"])
+    check = {"mesh": "2x2", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": SHARDED_STEPS,
+             "lr": TRAIN_LR, "one_device_losses": ref_losses,
+             "one_device_step_s": [r["wall_s"] for r in ref_rows],
+             "leaves": len(leaves), "worst_leaf": worst,
+             "min_update_cosine": min(c["update_cosine"] for c in leaves),
+             "cosine_bound": SHARDED_UPDATE_COS, "not_moved": still,
+             "past_bound": far, "below_cosine": turned,
+             "mesh_wall_s": wall}
+    print("train_sharded_2x2_check " + json.dumps(check), flush=True)
+    if far:
+        bad.append(f"leaves past {SHARDED_STEPS} x (2 lr + 2^-7 max|w|) "
+                   f"from the one-device run: {far}")
+    if turned:
+        bad.append(f"leaves whose updates are below cosine "
+                   f"{SHARDED_UPDATE_COS} with the one-device run's: "
+                   f"{turned}")
+    if still:
+        bad.append(f"leaves that did not move or are not finite: {still}")
+    if bad:
+        fail("train_sharded: " + "; ".join(bad))
     return launches
 
 
@@ -4188,10 +4501,13 @@ def main() -> int:
     launches["serve_whisper"] = timed("serve_whisper", serve_phase(
         "serve_whisper", WHISPER_ARCH, WHISPER_STEPS, args.seed,
         args.profile, eager_too=True))
-    launches["train"] = timed("train", train_phase(args.seed, args.profile))
+    launches["train"], train_stats = timed(
+        "train", train_phase(args.seed, args.profile))
     launches["train_gc"] = timed("train_gc", train_gc_phase(args.seed))
     launches["train_runtime"] = timed("train_runtime",
                                       train_runtime_phase())
+    launches["train_sharded"] = timed("train_sharded", train_sharded_phase(
+        args.seed, train_stats, tmp))
     launches["models"] = {
         k: sum(launches[p].get(k, 0) for p in launches
                if p.startswith(("serve", "train")))

@@ -25,6 +25,14 @@ is any object with ``axis_names`` and a ``shape`` mapping axis -> size
 ``named_shardings`` and ``activate_mesh`` name JAX objects; in their place
 :func:`shard_shape` gives one device's block of a tensor under a spec and
 :func:`shard_bytes` the bytes one device holds of a tree.
+
+For sharded execution (``train.step.make_train_step(..., mesh=...)``) a
+rank holds :func:`local_block` of each leaf, and :func:`gather_tree` puts
+the full leaves back together (checkpoints use it; the step does not).  An
+axis that ``param_pspecs`` dropped leaves its dim whole: a leaf with no
+FSDP axis is not gathered and its gradient is all-reduced over ``data``;
+a tensor-parallel leaf whose ``model`` axis was dropped cannot be run
+tensor-parallel, and :func:`check_shardable` raises for it.
 """
 from __future__ import annotations
 
@@ -38,7 +46,10 @@ TP_AXIS = "model"
 
 __all__ = ["TP_AXIS", "dp_axes", "norm_axes", "param_pspecs",
            "batch_pspecs", "cache_pspecs", "axes_size", "shard_shape",
-           "shard_bytes", "map_with_names", "spec_leaves"]
+           "shard_bytes", "map_with_names", "spec_leaves", "local_block",
+           "shard_tree", "gather_leaf", "gather_tree", "train_state_pspecs",
+           "check_shardable", "named_specs", "fsdp_dim",
+           "PARTIAL_OVER_MODEL"]
 
 
 def dp_axes(mesh):
@@ -245,3 +256,169 @@ def shard_bytes(tree, specs, mesh) -> int:
                * t.element_size()
                for t, s in spec_leaves(tree, specs)
                if isinstance(t, torch.Tensor))
+
+
+# ---------------------------------------------------------------------------
+# sharded execution: a rank's blocks
+# ---------------------------------------------------------------------------
+
+#: leaves split over ``model`` by the rules above, which a tensor-parallel
+#: step cannot run whole
+_TP_LEAVES = {"embed", "unembed", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+              "w_in", "w_gate", "w_out"}
+
+#: replicated leaves that act on a rank's heads only (qk-norm), so their
+#: gradients are partial over ``model`` as well as over ``data``
+PARTIAL_OVER_MODEL = ("q_norm", "k_norm")
+
+
+def named_specs(tree, specs, names: tuple = ()):
+    """(names, leaf, spec) of each leaf of ``tree`` and its spec tree,
+    ``names`` the dict keys on the way to the leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_specs(v, specs[k], names + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for v, s in zip(tree, specs):
+            yield from named_specs(v, s, names)
+    else:
+        yield names, tree, specs
+
+
+def fsdp_dim(spec) -> int | None:
+    """The dim a spec shards over ``data`` (None: the leaf is not
+    FSDP-sharded)."""
+    for i, ax in enumerate(spec):
+        if ax == "data" or (isinstance(ax, tuple) and "data" in ax):
+            return i
+    return None
+
+
+def _axis_index(ax, mesh, coords) -> int:
+    """A rank's block index along a spec entry's axes (the first axis
+    major, as JAX orders a tuple of mesh axes)."""
+    idx = 0
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        i = mesh.axis_names.index(a)
+        idx = idx * mesh.sizes[i] + coords[i]
+    return idx
+
+
+def local_block(tensor: torch.Tensor, spec: tuple, mesh,
+                coords=None) -> torch.Tensor:
+    """The block of ``tensor`` that the rank at ``coords`` (default: the
+    mesh view's own) holds under ``spec``, as a new contiguous tensor of
+    :func:`shard_shape`'s shape; where the axes do not divide a dim, the
+    last blocks are zero-padded."""
+    coords = mesh.coords if coords is None else tuple(coords)
+    shape = shard_shape(tuple(tensor.shape), spec, mesh)
+    full = tuple(spec) + (None,) * (tensor.dim() - len(spec))
+    view = tensor
+    for dim, (ax, n) in enumerate(zip(full, shape)):
+        if ax is None:
+            continue
+        start = min(_axis_index(ax, mesh, coords) * n, tensor.shape[dim])
+        view = view.narrow(dim, start, min(n, tensor.shape[dim] - start))
+    if tuple(view.shape) == shape:
+        return view.clone(memory_format=torch.contiguous_format)
+    out = torch.zeros(shape, dtype=tensor.dtype, device=tensor.device)
+    out[tuple(slice(0, k) for k in view.shape)] = view
+    return out
+
+
+def shard_tree(tree, specs, mesh, coords=None):
+    """:func:`local_block` of every leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh, coords)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh, coords)
+                          for v, s in zip(tree, specs))
+    return local_block(tree, specs, mesh, coords)
+
+
+def gather_leaf(block: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full tensor of a block under ``spec`` on every rank of ``mesh``
+    (a rank's view): one all-gather of every rank's block over the world,
+    not counted among the step's collectives."""
+    from .collectives import all_gather
+    full_spec = tuple(spec) + (None,) * (block.dim() - len(spec))
+    if all(ax is None for ax in full_spec):
+        return block
+    parts = all_gather(block.reshape(1, -1), mesh, None, count=False)
+    shape = tuple(n * axes_size(ax, mesh)
+                  for n, ax in zip(block.shape, full_spec))
+    out = torch.empty(shape, dtype=block.dtype, device=block.device)
+    for r in range(mesh.size):
+        c = mesh.coords_of(r)
+        idx = tuple(slice(None) if ax is None else
+                    slice(_axis_index(ax, mesh, c) * n,
+                          (_axis_index(ax, mesh, c) + 1) * n)
+                    for n, ax in zip(block.shape, full_spec))
+        out[idx] = parts[r].view(block.shape)
+    return out
+
+
+def gather_tree(tree, specs, mesh):
+    """The full leaves of a tree of blocks on every rank of ``mesh`` (a
+    rank's view), one leaf at a time over the world; for specs whose axes
+    divide their dims, as ``param_pspecs``' do.  Not counted among the
+    step's collectives."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    return gather_leaf(tree, specs, mesh)
+
+
+def train_state_pspecs(state, p_specs):
+    """Spec tree of a train state (``train.step.init_train_state``'s):
+    AdamW's moments and the gradient compressor's residuals sharded as the
+    parameters, ``step`` replicated.  Adafactor's factored moments need
+    row and column sums across shards: not on a mesh yet (ROADMAP
+    A12h-b)."""
+    opt = state["opt"]
+    if set(opt) != {"m", "v", "step"}:
+        raise NotImplementedError(
+            "Adafactor's factored moments across shards are not ported yet "
+            "(ROADMAP A12h-b); a mesh larger than 1x1 trains with AdamW")
+    out = {"opt": {"m": p_specs, "v": p_specs, "step": ()}}
+    if "gc_err" in state:
+        out["gc_err"] = p_specs
+    return out
+
+
+def check_shardable(cfg: ModelConfig, mesh, params_tree=None,
+                    specs=None) -> None:
+    """Raise for what a mesh larger than 1x1 does not run yet
+    (``NotImplementedError`` naming ROADMAP A12h-b: a family other than
+    ``dense``, kv heads that ``model`` does not divide, sequence-parallel
+    attention), and ``ValueError`` for a mesh other than ("data",
+    "model") or a tensor-parallel leaf whose ``model`` axis the rules
+    dropped (it names the leaf; checked where ``params_tree`` and its
+    ``specs`` are given)."""
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"sharded execution runs on a (data, model) host "
+                         f"mesh, got axes {mesh.axis_names}")
+    tp = mesh.shape[TP_AXIS]
+    todo = "is not ported yet (ROADMAP A12h-b)"
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: sharded execution of the {cfg.family} family "
+            f"{todo}; the dense family runs on a mesh")
+    if cfg.n_kv_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_kv_heads} kv heads over model {tp} (GSPMD "
+            f"replicates the scores) {todo}")
+    if cfg.seq_parallel_attn:
+        raise NotImplementedError(
+            f"{cfg.name}: seq_parallel_attn on a mesh {todo}")
+    if tp == 1 or params_tree is None:
+        return
+    for names, _, spec in named_specs(params_tree, specs):
+        if names and names[-1] in _TP_LEAVES and TP_AXIS not in spec:
+            raise ValueError(
+                f"{cfg.name}: leaf {'/'.join(names)} cannot run tensor-"
+                f"parallel: the rules dropped its model axis (spec {spec}: "
+                f"model {tp} does not divide its dims)")

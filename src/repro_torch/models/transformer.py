@@ -41,11 +41,21 @@ with pos traced.
 
 Encoder-decoder models (whisper) run through ``models/encdec.py``; this
 module refuses them.
+
+Sharded training (``train.step.make_train_step(..., mesh=...)``) runs
+the same layer code with a rank's ``par``
+(``distributed.collectives.Parallel``; None is one device): each unit's
+parameter blocks pass through the FSDP gather inside the checkpointed unit
+body, so the recompute gathers again; Megatron's *f* takes the normed
+input of the attention and of the MLP, *g* their outputs before the
+residual adds; the attention runs on the rank's heads through a local
+config, the MLP on its ff columns; the embedding and the tied logits are
+vocab-parallel, and so is the cross-entropy (:func:`next_token_nll`).
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..core.devices import resolve_device
 from . import attention as A
@@ -175,11 +185,14 @@ def init_params(cfg: ModelConfig, gen=0, dtype=torch.bfloat16,
 # single layer application
 # ===========================================================================
 
-def _ffn(cfg: ModelConfig, kind: str, x, prm):
+def _ffn(cfg: ModelConfig, kind: str, x, prm, par=None):
     if _has_mlp(cfg, kind):
         h = rms_norm(x, prm["ln2"], cfg.norm_eps)
-        x = x + (moe_layer(h, prm["mlp"], cfg) if cfg.moe is not None
-                 else mlp(h, prm["mlp"], cfg.act))
+        if par is not None:
+            h = par.f(h)
+        out = (moe_layer(h, prm["mlp"], cfg) if cfg.moe is not None
+               else mlp(h, prm["mlp"], cfg.act))
+        x = x + (out if par is None else par.g(out))
     return x
 
 
@@ -191,18 +204,25 @@ def _write_state(cache, state: dict) -> None:
 
 
 def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions, aux,
-                      cache):
+                      cache, par=None):
     """Full-sequence pass; writes the layer's cache entry into ``cache``
     (its views, or None): k/v from slot 0, or for a prompt longer than a
     local layer's ring its last Tc positions p at slots p % Tc; a
     cross-attention layer's k/v of the image embeddings ``aux``; a
-    recurrent layer's final state."""
+    recurrent layer's final state.  With a rank's ``par`` (self-attention
+    layers of a training pass) the attention runs on the rank's heads
+    between *f* and *g*."""
     h = rms_norm(x, prm["ln1"], cfg.norm_eps)
     want = cache is not None
     if kind in ATTN_KINDS:
         W = _window(cfg, kind)
-        mix, (k, v) = A.attention_full(h, prm["attn"], cfg, positions,
+        acfg = cfg
+        if par is not None:
+            h, acfg = par.f(h), par.local_cfg(cfg)
+        mix, (k, v) = A.attention_full(h, prm["attn"], acfg, positions,
                                        window=W)
+        if par is not None:
+            mix = par.g(mix)
         if want:
             S, Tc = k.shape[1], cache["k"].shape[1]
             if W and S > Tc:
@@ -227,7 +247,7 @@ def _apply_layer_full(cfg: ModelConfig, kind: str, x, prm, positions, aux,
         mix, carry = X.slstm_full(h, prm["mix"], cfg)
         if want:
             _write_state(cache, dict(zip("hcnm", carry)))
-    return _ffn(cfg, kind, x + mix, prm)
+    return _ffn(cfg, kind, x + mix, prm, par)
 
 
 def _apply_layer_decode(cfg: ModelConfig, kind: str, x, prm, pos, cache):
@@ -285,15 +305,26 @@ def _layers(cfg: ModelConfig, params, cache):
 # public entry points
 # ===========================================================================
 
-def _embed(cfg: ModelConfig, params, tokens):
-    x = params["embed"][tokens]
+def _embed(cfg: ModelConfig, params, tokens, par=None):
+    w = params["embed"]
+    if par is None or par.tp == 1:
+        x = w[tokens]
+    else:   # vocab-parallel: the rank's rows, zero elsewhere, summed
+        local = tokens - par.tp_index * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = w[local.clamp(0, w.shape[0] - 1)]
+        x = par.g(torch.where(inside[..., None], rows,
+                              torch.zeros_like(rows)))
     # the constant is rounded to the embedding's dtype first, as in JAX
     # (on the host: a device tensor made from a host value would sync)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
 
 
-def _logits(cfg: ModelConfig, params, x):
+def _logits(cfg: ModelConfig, params, x, par=None):
+    """f32 logits; with a rank's ``par``, over its vocab block."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if par is not None:
+        x = par.f(x)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = (x @ w).to(torch.float32)
     if cfg.logits_softcap:
@@ -302,54 +333,88 @@ def _logits(cfg: ModelConfig, params, x):
     return logits
 
 
-def remat(cfg: ModelConfig, body):
+def remat(cfg: ModelConfig, body, early_stop: bool = True):
     """``body`` checkpointed when ``cfg.remat`` asks for it and grad is
     enabled (non-reentrant: its activations are recomputed in the
     backward; the layers draw no random numbers, so no RNG state is
-    kept), else ``body`` itself."""
+    kept), else ``body`` itself.  ``early_stop=False`` recomputes the
+    whole body, not only up to its last saved tensor: a sharded unit then
+    repeats every collective of its forward, as ``launch/dryrun.py``
+    counts them."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return body
 
     def wrapped(*args):
         return checkpoint(body, *args, use_reentrant=False,
                           preserve_rng_state=False)
-    return wrapped
+    if early_stop:
+        return wrapped
+
+    def whole(*args):
+        with set_checkpoint_early_stop(False):
+            return wrapped(*args)
+    return whole
 
 
-def forward_train(cfg: ModelConfig, params, tokens, aux=None):
+def forward_train(cfg: ModelConfig, params, tokens, aux=None, par=None):
     """tokens (B, S) -> logits (B, S, V) f32; ``aux`` the image embeddings
     (B, n_image_tokens, d_model) a cross-attention layer reads.  Each
     pattern unit is checkpointed under ``cfg.remat`` (:func:`remat`), the
-    remainder layers not, as in ``repro``."""
+    remainder layers not, as in ``repro``.  With a rank's ``par``,
+    ``params`` are the rank's blocks and the logits its vocab block's."""
     check_supported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(cfg, params, tokens)
+    top = params if par is None else par.gather_top(params)
+    x = _embed(cfg, top, tokens, par)
 
     def unit(x, unit_params):
+        if par is not None:
+            unit_params = [par.gather_unit(i, p)
+                           for i, p in enumerate(unit_params)]
         for kind, prm in zip(cfg.pattern, unit_params):
-            x = _apply_layer_full(cfg, kind, x, prm, positions, aux, None)
+            x = _apply_layer_full(cfg, kind, x, prm, positions, aux, None,
+                                  par)
         return x
 
-    body = remat(cfg, unit)
+    body = remat(cfg, unit, early_stop=par is None)
     for unit_params in unstack(params["units"], cfg.n_units):
         x = body(x, unit_params)
     for i, prm in enumerate(params["rem"]):
+        if par is not None:
+            prm = par.gather_rem(i, prm)
         x = _apply_layer_full(cfg, cfg.pattern[i], x, prm, positions, aux,
-                              None)
-    return _logits(cfg, params, x)
+                              None, par)
+    return _logits(cfg, top, x, par)
 
 
-def next_token_nll(logits, tokens):
+def next_token_nll(logits, tokens, par=None):
     """Mean next-token cross-entropy over the B·(S-1) targets of
-    ``tokens`` (B, S), from f32 ``logits`` (B, S, V)."""
-    lp = torch.log_softmax(logits[:, :-1], dim=-1)
-    nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
-    return nll.mean()
+    ``tokens`` (B, S), from f32 ``logits`` (B, S, V).  With a rank's
+    ``par`` the logits are its vocab block's (B, S, V/tp), and the
+    cross-entropy is vocab-parallel: the max all-reduced over ``model``
+    (MAX, no gradient), the sum of exponentials and the target's logit
+    (zero on the ranks that do not hold it) through *g*; the mean is the
+    rank's over its B·(S-1) targets."""
+    if par is None or par.tp == 1:
+        lp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -torch.gather(lp, -1, tokens[:, 1:, None].long())[..., 0]
+        return nll.mean()
+    z = logits[:, :-1]
+    V = z.shape[-1]
+    m = par.max_model(z.detach().amax(dim=-1))
+    s = par.g(torch.exp(z - m[..., None]).sum(dim=-1))
+    local = tokens[:, 1:].long() - par.tp_index * V
+    inside = (local >= 0) & (local < V)
+    zt = torch.gather(z, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    zt = par.g(torch.where(inside, zt, torch.zeros_like(zt)))
+    return (torch.log(s) + m - zt).mean()
 
 
-def loss_fn(cfg: ModelConfig, params, tokens, aux=None):
-    """Next-token cross-entropy (mean over B*(S-1) targets)."""
-    return next_token_nll(forward_train(cfg, params, tokens, aux), tokens)
+def loss_fn(cfg: ModelConfig, params, tokens, aux=None, par=None):
+    """Next-token cross-entropy (mean over B*(S-1) targets; with a rank's
+    ``par``, over its rows' targets)."""
+    return next_token_nll(forward_train(cfg, params, tokens, aux, par),
+                          tokens, par)
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, aux=None,

@@ -7,7 +7,7 @@ carried into the next step.  Plain torch, as ``repro``'s is XLA and no
 Pallas kernel.  ``roundtrip`` writes the dequantized gradient into the
 gradient tensor and the new residual into the residual tensor in place, a
 slice of the leading axis at a time (``optim.adamw.slices``) after one
-pass for the leaf's max, so its f32 temporaries are one slice's.  The
+pass for each leaf's max, so its f32 temporaries are one slice's.  The
 codes are the pwrel tolerance's (ROADMAP): ``torch.log2`` is not XLA's,
 so a code may differ from ``repro``'s by one at a rounding tie.
 """
@@ -39,17 +39,26 @@ class GradCompressor:
             p, dtype=torch.float32, memory_format=torch.contiguous_format),
             params)
 
-    def roundtrip(self, grads, err_state):
+    def roundtrip(self, grads, err_state, reduce_max=None):
         """(grads, residuals) -> (decompressed grads, new residuals), both
-        written into the given tensors."""
+        written into the given tensors.  ``reduce_max`` takes the (n,)
+        tensor of the leaves' max|g + e| and returns it maxed over the
+        leaves' shards (a sharded step's all-reduce), so every code is the
+        one a device holding the whole leaf would write."""
         step = log_step(self.b_r)
         with torch.no_grad():
-            for g, e in zip(tree_leaves(grads), tree_leaves(err_state)):
+            pairs = list(zip(tree_leaves(grads), tree_leaves(err_state)))
+            maxima = []
+            for g, e in pairs:
                 max_abs = torch.zeros((), dtype=torch.float32,
                                       device=g.device)
                 for gs, es in slices(g, e):
                     max_abs = torch.maximum(
                         max_abs, (gs.to(torch.float32) + es).abs().max())
+                maxima.append(max_abs)
+            if reduce_max is not None and maxima:
+                maxima = list(reduce_max(torch.stack(maxima)).unbind(0))
+            for (g, e), max_abs in zip(pairs, maxima):
                 l_max = torch.where(
                     max_abs > 0, torch.log2(torch.clamp_min(max_abs, _TINY)),
                     torch.zeros_like(max_abs))

@@ -16,6 +16,12 @@ and tuple indices, ``/``-joined — and its dtype names (``"bfloat16"``,
   template and puts each leaf on ``device`` (default ``cuda:0``): a
   checkpoint written from one device restores onto another, where
   ``repro`` re-shards onto the current mesh.
+* On a host mesh (``mesh``: a rank's view, ``specs``: the spec tree of the
+  rank's blocks) every rank calls ``save``: each leaf is gathered whole
+  and rank 0 writes the same files one device writes; ``restore`` hands
+  each rank its block of every leaf read whole (``repro``'s elastic
+  re-shard takes ``shardings=``): a checkpoint written on any mesh, or on
+  one device, restores on any other.
 * ``keep_last`` garbage-collects old steps.
 
 bf16 leaves cross as their int16 bits; nothing here imports
@@ -32,8 +38,10 @@ import numpy as np
 import torch
 
 from ..core.devices import resolve_device
+from ..distributed.collectives import barrier
+from ..distributed.sharding import gather_leaf, local_block, spec_leaves
 
-__all__ = ["CheckpointManager", "flatten"]
+__all__ = ["CheckpointManager", "flatten", "flatten_specs"]
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64,
        torch.int32: np.int32, torch.int64: np.int64, torch.int16: np.int16,
@@ -57,6 +65,12 @@ def flatten(tree, prefix: tuple = ()) -> dict:
             out.update(flatten(v, prefix + (i,)))
         return out
     return {"/".join(str(p) for p in prefix): tree}
+
+
+def flatten_specs(tree, specs) -> dict:
+    """``{key: spec}`` of a tree and its spec tree, keyed as
+    :func:`flatten` keys the tree (both walks sort dict keys)."""
+    return dict(zip(flatten(tree), (s for _, s in spec_leaves(tree, specs))))
 
 
 def _unflatten(template, leaves: dict, prefix: tuple = ()):
@@ -130,13 +144,26 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # -- save --------------------------------------------------------------------
-    def save(self, step: int, tree) -> None:
+    def save(self, step: int, tree, mesh=None, specs=None) -> None:
+        """Write ``tree`` as step ``step``.  On a mesh larger than 1x1
+        every rank calls it with its blocks: rank 0 writes the gathered
+        leaves, and each rank returns once the step is written."""
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            leaf_specs = flatten_specs(tree, specs)
+            if mesh.rank != 0:
+                for key, leaf in flatten(tree).items():
+                    gather_leaf(leaf, leaf_specs[key], mesh)
+                barrier(mesh)
+                return
         tmp = self._step_dir(step) + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {}
         for key, leaf in flatten(tree).items():
+            if sharded:
+                leaf = gather_leaf(leaf, leaf_specs[key], mesh)
             arr, dtype = _to_numpy(leaf)
             fn = key.replace("/", "__") + ".bin"
             blob = arr.tobytes()
@@ -154,6 +181,8 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)            # atomic commit
         self._gc()
+        if sharded:
+            barrier(mesh)
 
     def _gc(self) -> None:
         steps = self.steps()
@@ -161,14 +190,19 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -------------------------------------------------------------------
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                mesh=None, specs=None):
         """Load into the structure of ``template`` (its leaves name the
         keys; their values are not read), each leaf on ``device``
-        (default ``cuda:0``); returns ``(tree, step)``."""
+        (default ``cuda:0``); returns ``(tree, step)``.  With ``mesh``
+        (coordinates set: a rank's view) and the spec tree ``specs`` each
+        leaf is that rank's block of the stored one."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         dev = resolve_device(device)
+        if mesh is not None:
+            leaf_specs = flatten_specs(template, specs)
         d = self._step_dir(step)
         manifest = json.loads(_read(os.path.join(d, "manifest.json")))
         leaves = {}
@@ -177,5 +211,11 @@ class CheckpointManager:
             blob = _read(os.path.join(d, ent["file"]))
             if ent["codec"] == "zlib":
                 blob = zlib.decompress(blob)
-            leaves[key] = _from_bytes(blob, ent["dtype"], ent["shape"], dev)
+            if mesh is None:
+                leaves[key] = _from_bytes(blob, ent["dtype"], ent["shape"],
+                                          dev)
+            else:
+                leaves[key] = local_block(
+                    _from_bytes(blob, ent["dtype"], ent["shape"], "cpu"),
+                    leaf_specs[key], mesh).to(dev)
         return _unflatten(template, leaves), step

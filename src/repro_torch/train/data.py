@@ -9,7 +9,10 @@ stream.  A file-backed source (memory-mapped token file) slots in behind
 the same interface.
 
 A copy of ``repro/train/data.py`` (numpy only): both packages draw the same
-batches for the same seed, step and shard.
+batches for the same seed, step and shard.  :class:`BatchRows` is the
+port's own: a data-parallel rank's rows of the global batch, which is what
+``repro``'s jitted step over a mesh trains on (``n_shards``/``shard`` draw
+other data).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["SyntheticTokens", "FileTokens", "make_batches"]
+__all__ = ["SyntheticTokens", "FileTokens", "BatchRows", "make_batches"]
 
 
 @dataclass(frozen=True)
@@ -75,6 +78,25 @@ class FileTokens:
         starts = rng.integers(0, n, size=self.shard_batch)
         out = np.stack([data[s:s + self.seq_len] for s in starts])
         return (out.astype(np.int64) % self.vocab).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class BatchRows:
+    """Rows ``[block·b, (block+1)·b)`` of ``source``'s batch, b its rows
+    over ``n_blocks``: a data-parallel rank's share of the global batch,
+    so a sharded step trains on the one-device step's data."""
+
+    source: object
+    n_blocks: int
+    block: int
+
+    def batch(self, step: int) -> np.ndarray:
+        full = self.source.batch(step)
+        if full.shape[0] % self.n_blocks:
+            raise ValueError(f"a batch of {full.shape[0]} rows does not "
+                             f"split over {self.n_blocks} data ranks")
+        b = full.shape[0] // self.n_blocks
+        return full[self.block * b:(self.block + 1) * b]
 
 
 def make_batches(source, start_step: int = 0):

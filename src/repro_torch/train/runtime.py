@@ -10,7 +10,9 @@ The port of ``repro/train/runtime.py``:
   ``max_restarts`` bounds flapping.
 * **restore onto a device** — restore puts the leaves on ``device``
   (default ``cuda:0``), where ``repro`` re-shards onto the current mesh's
-  shardings.
+  shardings; on a host mesh (``mesh``, a rank's view, and ``specs``, the
+  spec tree of ``(params, state)``'s blocks) each rank saves its part of
+  the gathered checkpoint and restores its blocks.
 * **straggler mitigation** — steps slower than ``straggler_factor`` x the
   trailing median are counted and surfaced in the metrics.
 * **failure injection** — ``fail_at_step`` raises once inside the loop to
@@ -55,6 +57,8 @@ class TrainRuntime:
     train_step: object                   # (params, state, batch) -> ...
     data_source: object                  # .batch(step) -> np array
     device: object = None                # where restored leaves go
+    mesh: object = None                  # a rank's view of a host mesh
+    specs: object = None                 # spec tree of (params, state)
 
     _failed_once: bool = field(default=False, init=False)
 
@@ -71,8 +75,9 @@ class TrainRuntime:
         step = 0
         # resume if a checkpoint exists
         if mgr.latest_step() is not None:
-            (params, state), step = mgr.restore((params, state),
-                                                device=self.device)
+            (params, state), step = mgr.restore(
+                (params, state), device=self.device, mesh=self.mesh,
+                specs=self.specs)
             step += 1
         metrics_hist = []
         step_times: list[float] = []
@@ -98,7 +103,8 @@ class TrainRuntime:
                                stragglers=stragglers, restarts=restarts)
                 metrics_hist.append(metrics)
                 if step % self.cfg.ckpt_every == 0 or step == n_steps - 1:
-                    mgr.save(step, (params, state))
+                    mgr.save(step, (params, state), mesh=self.mesh,
+                             specs=self.specs)
                 step += 1
             except (KeyboardInterrupt,):
                 raise
@@ -118,7 +124,8 @@ class TrainRuntime:
                     # initial state
                     step = 0
                     continue
-                (params, state), last = mgr.restore((params, state),
-                                                    device=self.device)
+                (params, state), last = mgr.restore(
+                    (params, state), device=self.device, mesh=self.mesh,
+                    specs=self.specs)
                 step = last + 1
         return params, state, metrics_hist
